@@ -1,9 +1,11 @@
-"""A small pure-Python msgpack decoder for Flax checkpoints.
+"""A small pure-Python msgpack codec for Flax checkpoints.
 
-Reads exactly what ``flax.serialization.msgpack_serialize`` writes:
-maps, arrays, str, bin, ints, floats, nil, bool, and Flax's ndarray
-extension (type code 1: a msgpack-encoded ``(shape, dtype_name, buffer)``
-triple). Neither ``msgpack`` nor ``flax`` is needed at run time.
+:func:`unpackb` reads exactly what ``flax.serialization.msgpack_serialize``
+writes: maps, arrays, str, bin, ints, floats, nil, bool, and Flax's
+ndarray extension (type code 1: a msgpack-encoded ``(shape, dtype_name,
+buffer)`` triple). :func:`packb` writes the same subset, numpy arrays as
+that extension, so Flax's ``msgpack_restore`` reads what it wrote.
+Neither ``msgpack`` nor ``flax`` is needed at run time.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["unpackb"]
+__all__ = ["packb", "unpackb"]
 
 _EXT_NDARRAY = 1
 
@@ -108,3 +110,91 @@ def unpackb(data):
     if r.pos != len(r.data):
         raise ValueError("msgpack: trailing bytes after the object")
     return out
+
+
+def _head(out, n, fix, fix_max, codes):
+    """Append a length header: ``fix | n`` when ``n <= fix_max``, else the
+    smallest of the (code, struct format) pairs that holds ``n``."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(struct.pack(">B" + fmt[1:], code, n))
+            return
+    raise ValueError(f"msgpack: object too large ({n})")
+
+
+def _pack_int(out, v):
+    if 0 <= v <= 0x7F:
+        out.append(bytes([v]))
+    elif -32 <= v < 0:
+        out.append(struct.pack(">b", v))
+    elif v > 0:
+        for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                          (0xCF, ">Q")):
+            if v < 1 << (8 * struct.calcsize(fmt)):
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"msgpack: int too large ({v})")
+    else:
+        for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                          (0xD3, ">q")):
+            if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"msgpack: int too small ({v})")
+
+
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _pack(out, obj):
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _head(out, len(data), 0xA0, 31,
+              ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out.append(data)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _head(out, len(data), None, -1,
+              ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out.append(data)
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        a = np.ascontiguousarray(obj)
+        payload = packb([list(a.shape), a.dtype.name, a.tobytes()])
+        n = len(payload)
+        if n in _FIXEXT:
+            out.append(bytes([_FIXEXT[n]]))
+        else:
+            _head(out, n, None, -1,
+                  ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out.append(struct.pack(">b", _EXT_NDARRAY))
+        out.append(payload)
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def packb(obj):
+    """Encode ``obj`` (dicts, lists, tuples, str, bytes, int, float,
+    bool, None, numpy arrays) to msgpack bytes."""
+    out = []
+    _pack(out, obj)
+    return b"".join(out)

@@ -1,1 +1,1 @@
-"""Synthetic phantom volumes."""
+"""Synthetic phantoms, the patch-cache contract and the data loader."""

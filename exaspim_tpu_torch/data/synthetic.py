@@ -1,9 +1,12 @@
-"""Synthetic ExaSPIM-like phantom volumes (numpy + scipy, host side).
+"""Synthetic ExaSPIM-like phantom volumes and patch datasets (numpy +
+scipy, host side).
 
-Copies of ``exaspim_tpu/data/synthetic.py``'s ``neurite_phantom`` and
-``noisy_observation``: randomly oriented PSF-blurred neurite tubes over a
-pedestal background, observed with Poisson shot noise and Gaussian read
-noise. Same seeds, same volumes as the reference.
+Copies of ``exaspim_tpu/data/synthetic.py``: randomly oriented PSF-blurred
+neurite tubes over a pedestal background, observed with Poisson shot noise
+and Gaussian read noise; the per-index patch dataset with its Gaussian
+teacher, and the cache writer. Same seeds, same volumes as the reference.
+The BM4D teacher (``use_bm4d_teacher=True``) comes with the BM4D slice of
+the port and raises until then.
 """
 
 from __future__ import annotations
@@ -11,7 +14,13 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["neurite_phantom", "noisy_observation"]
+__all__ = [
+    "neurite_phantom",
+    "neurite_phantom_b",
+    "noisy_observation",
+    "SyntheticPatchDataset",
+    "make_synthetic_cache",
+]
 
 
 def neurite_phantom(shape=(128, 128, 128), n_tubes=12, radius_range=(1.0, 3.0),
@@ -63,3 +72,94 @@ def noisy_observation(clean, gain=1.0, read_noise=3.0, seed=0):
     counts = rng.poisson(np.maximum(clean, 0) / gain) * gain
     counts = counts + rng.normal(0.0, read_noise, clean.shape)
     return np.clip(np.round(counts), 0, 65535).astype(np.uint16)
+
+
+def neurite_phantom_b(shape=(128, 128, 128), seed=0):
+    """Second phantom family ("family B"): ~4× denser, thinner and dimmer
+    tubes, a wider PSF (σ = 1.8) and a 40-count pedestal."""
+    n_tubes = max(4, round(48 * float(np.prod(shape)) / 128 ** 3))
+    return neurite_phantom(
+        shape, n_tubes=n_tubes, radius_range=(0.8, 2.2),
+        intensity_range=(250.0, 2500.0), background=40.0,
+        psf_sigma=1.8, seed=seed,
+    )
+
+
+class SyntheticPatchDataset:
+    """Map-style dataset of (raw, teacher, fg) synthetic count patches.
+
+    Deterministic per index: item ``i`` is generated from
+    ``SeedSequence([seed, i])``, so any worker layout produces identical
+    data. The teacher is the Gaussian surrogate (σ = 1, rounded to
+    counts).
+    """
+
+    fields = ("raw", "teacher", "fg")
+
+    def __init__(self, n=64, patch_shape=(64, 64, 64), seed=42,
+                 sigma_bm4d=16.0, use_bm4d_teacher=False, family="a"):
+        if use_bm4d_teacher:
+            raise NotImplementedError(
+                "the BM4D teacher comes with the BM4D slice of the port; "
+                "use_bm4d_teacher=False gives the Gaussian teacher")
+        if family not in ("a", "b", "mix"):
+            raise ValueError(f"unknown phantom family {family!r}")
+        self.n = int(n)
+        self.patch_shape = tuple(patch_shape)
+        self.seed = seed
+        self.sigma_bm4d = sigma_bm4d
+        self.use_bm4d_teacher = use_bm4d_teacher
+        self.family = family
+
+    def __len__(self):
+        return self.n
+
+    def raw_and_fg(self, index):
+        """Raw counts + foreground mask only (no teacher)."""
+        ss = np.random.SeedSequence([self.seed, index])
+        s1, s2 = ss.spawn(2)
+        fam = self.family
+        if fam == "mix":
+            fam = "a" if index % 2 == 0 else "b"
+        if fam == "b":
+            clean, fg = neurite_phantom_b(
+                self.patch_shape, seed=int(s1.generate_state(1)[0])
+            )
+        else:
+            clean, fg = neurite_phantom(
+                self.patch_shape, n_tubes=4,
+                seed=int(s1.generate_state(1)[0]),
+            )
+        raw = noisy_observation(
+            clean, seed=int(s2.generate_state(1)[0])
+        )
+        return raw, fg
+
+    def __getitem__(self, index):
+        if not -self.n <= index < self.n:
+            raise IndexError(index)
+        raw, fg = self.raw_and_fg(index % self.n)
+        teacher = np.clip(
+            np.round(ndimage.gaussian_filter(raw.astype(np.float32), 1.0)),
+            0, 65535,
+        ).astype(np.uint16)
+        return raw, teacher, fg
+
+
+def make_synthetic_cache(cache_dir, n, patch_shape, transform_cfg, seed=42,
+                         **dataset_kwargs):
+    """Materialize a synthetic dataset into an on-disk cache directory."""
+    from exaspim_tpu_torch.data.cache import allocate_cache
+
+    ds = SyntheticPatchDataset(
+        n=n, patch_shape=patch_shape, seed=seed, **dataset_kwargs
+    )
+    raw, teacher, fg = allocate_cache(
+        cache_dir, n, patch_shape, transform_cfg,
+        config={"source": "synthetic", "n": n, "patch_shape": patch_shape,
+                "seed": seed, **dataset_kwargs},
+    )
+    for i in range(n):
+        raw[i], teacher[i], fg[i] = ds[i]
+    raw.flush(), teacher.flush(), fg.flush()
+    return cache_dir

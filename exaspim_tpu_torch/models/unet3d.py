@@ -1,4 +1,4 @@
-"""Residual 3D U-Net denoiser ("BM4DNet") in PyTorch, inference only.
+"""Residual 3D U-Net denoiser ("BM4DNet") in PyTorch.
 
 Counterpart of ``exaspim_tpu/models/unet3d.py`` (``UNet:592``): a
 4-down/4-up residual U-Net with GroupNorm(gcd(8, C)) + LeakyReLU(0.01)
@@ -12,8 +12,12 @@ output and the following GroupNorm skips its own reduction. Submodule and
 parameter names mirror the Flax tree (``DoubleConv_0.Conv_0.kernel``,
 ``Up_1.DoubleConv_0.GroupNorm_1.scale``, head ``Conv_0``), so
 :func:`exaspim_tpu_torch.train.checkpoint.params_from_flax` is a rename.
-3³ taps are stored pre-packed as ``(27, Cin, Cout)`` in the compute dtype,
-so loading a state dict packs them once.
+
+Parameters are f32 masters, trainable, as in the reference
+(``unet3d.py:163-172``): 3³ taps stored pre-packed as ``(27, Cin, Cout)``
+and cast to the compute dtype on each call (the cast is differentiable;
+under ``torch.inference_mode()`` the cast is cached until the taps change).
+:meth:`UNet.init_weights` draws Flax's initialisers from a seed.
 """
 
 from __future__ import annotations
@@ -35,7 +39,20 @@ __all__ = [
     "max_pool3d",
     "resize_trilinear",
     "linear_resize_matrix",
+    "lecun_normal_",
 ]
+
+# Flax's lecun_normal: a normal truncated to ±2σ whose σ is corrected by
+# this factor so the truncated draw keeps variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t, fan_in, generator):
+    """In-place Flax ``lecun_normal`` (truncated normal, fan_in scaling)."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 def _norm_groups(channels):
@@ -71,12 +88,13 @@ def group_norm(x, scale, bias, num_groups, stats=None, eps=1e-5):
 
 
 def max_pool3d(x):
-    """2³ stride-2 VALID max pool over NDHWC; odd trailing slabs drop."""
-    b, d, h, w, c = x.shape
-    d2, h2, w2 = d // 2, h // 2, w // 2
-    x = x[:, :2 * d2, :2 * h2, :2 * w2]
-    x = x.reshape(b, d2, 2, h2, 2, w2, 2, c)
-    return x.amax(dim=(2, 4, 6))
+    """2³ stride-2 VALID max pool over NDHWC; odd trailing slabs drop.
+
+    ``F.max_pool3d`` on the channels-last view: its gradient goes to one
+    element per window, as XLA's ``reduce_window`` max does (``amax``
+    would split it among ties, which bf16 makes common)."""
+    y = nn.functional.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 @functools.lru_cache(maxsize=128)
@@ -120,7 +138,8 @@ def resize_trilinear(x, target, align_corners=False):
 
 
 class Conv3(nn.Module):
-    """3³ SAME conv without bias; taps pre-packed ``(27, Cin, Cout)``.
+    """3³ SAME conv without bias; f32 taps pre-packed ``(27, Cin, Cout)``,
+    cast to the compute ``dtype`` on each call.
 
     Takes one tensor or a ``(skip, up)`` pair of channel segments and
     returns ``(y, Σy, Σy²)``.
@@ -128,20 +147,31 @@ class Conv3(nn.Module):
 
     def __init__(self, cin, cout, dtype=torch.float32):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.zeros(27, cin, cout, dtype=dtype), requires_grad=False
-        )
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(27, cin, cout))
+        self._cast = None  # (key, taps) cached under inference mode
+
+    def taps(self):
+        k = self.kernel
+        if k.dtype == self.dtype:
+            return k
+        if not torch.is_inference_mode_enabled():
+            return k.to(self.dtype)
+        key = (k.data_ptr(), k._version, k.device)
+        if self._cast is None or self._cast[0] != key:
+            self._cast = (key, k.to(self.dtype))
+        return self._cast[1]
 
     def forward(self, xs):
-        return nb_conv3d_stats(xs, self.kernel)
+        return nb_conv3d_stats(xs, self.taps())
 
 
 class GroupNorm(nn.Module):
     def __init__(self, channels):
         super().__init__()
         self.num_groups = _norm_groups(channels)
-        self.scale = nn.Parameter(torch.ones(channels), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(channels), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, stats=None):
         return group_norm(x, self.scale, self.bias, self.num_groups, stats)
@@ -235,9 +265,30 @@ class UNet(nn.Module):
         self.Up_2 = Up(c2, c3 // 2, c2 // 2, ac, dtype)
         self.Up_3 = Up(c1, c2 // 2, c1, ac, dtype)
         self.Conv_0 = nn.Module()  # 1×1×1 head: kernel (c1, 1), bias (1,)
-        self.Conv_0.kernel = nn.Parameter(torch.zeros(c1, 1),
-                                          requires_grad=False)
-        self.Conv_0.bias = nn.Parameter(torch.zeros(1), requires_grad=False)
+        self.Conv_0.kernel = nn.Parameter(torch.zeros(c1, 1))
+        self.Conv_0.bias = nn.Parameter(torch.zeros(1))
+
+    def init_weights(self, seed=0):
+        """Flax's initialisers, drawn from ``torch.Generator(seed)``: 3³
+        taps lecun_normal (fan_in 27·Cin), GroupNorm scale 1 and bias 0,
+        head kernel zeros or lecun_normal (``head_init``), head bias 0.
+        Equal to ``UNet.init`` in distribution, not in bits."""
+        if self.config["head_init"] not in ("zeros", "normal"):
+            raise ValueError(f"unknown head_init {self.config['head_init']!r}")
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                head = name == "Conv_0.kernel"
+                if name.endswith("kernel") and not (
+                        head and self.config["head_init"] == "zeros"):
+                    # fan_in: Cin of the head, 27·Cin of a 3³ conv.
+                    fan_in = p.shape[0] if head else 27 * p.shape[1]
+                    p.copy_(lecun_normal_(torch.empty(p.shape), fan_in, gen))
+                elif name.endswith("scale"):
+                    p.fill_(1.0)
+                else:
+                    p.zero_()
+        return self
 
     def forward(self, x):
         xin = x

@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
-__all__ = ["load_library", "build_log", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_all", "build_log", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -38,34 +39,54 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(name):
+def _paths(name):
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_all(names):
+    """Compile every ``csrc/<name>.cu`` not built yet, one nvcc process per
+    source, all started together; then load them. Returns the seconds
+    each build took (0.0 for a library already built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if os.path.exists(lib):
-        return lib, "(cached)"
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {src} (rc={proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    with _lock:
+        jobs = {}
+        for name in names:
+            src, lib = _paths(name)
+            if name in _libs or os.path.exists(lib):
+                continue
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            jobs[name] = (src, lib, tmp, time.time(), subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        seconds = dict.fromkeys(names, 0.0)
+        failed = []
+        for name, (src, lib, tmp, t0, proc) in jobs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.time() - t0
+            _logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src} (rc={proc.returncode}):"
+                              f"\n{log}")
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(_paths(name)[1])
+                _logs.setdefault(name, "(cached)")
+        return seconds
 
 
 def load_library(name):
     """Compile (once per source version) and load ``csrc/<name>.cu``."""
-    with _lock:
-        if name not in _libs:
-            path, log = _compile(name)
-            _libs[name] = ctypes.CDLL(path)
-            _logs[name] = log
-        return _libs[name]
+    if name not in _libs:
+        build_all([name])
+    return _libs[name]
 
 
 def build_log(name):

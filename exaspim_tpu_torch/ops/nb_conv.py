@@ -12,7 +12,12 @@ On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 :func:`nb_conv3d_plain`, the plain PyTorch version of the same function,
 which the CPU tests and the kernel check in ``chip_smoke.py`` use.
 
-Inference only: a call that needs a gradient raises ``NotImplementedError``.
+Both are differentiable (``torch.autograd.Function``s, the counterparts
+of ``_nb_conv3d_core`` / ``_nb_conv3d_stats_core``, ``nb_conv.py:798-961``).
+The backward folds the stats cotangents into the output cotangent, runs
+dL/dx as the same forward conv with flipped, channel-transposed taps, and
+dL/dW through :func:`nb_conv3d_dw` (``csrc/nb_conv3d_dw.cu`` on the card,
+:func:`nb_conv3d_dw_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -22,13 +27,25 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["nb_conv3d", "nb_conv3d_stats", "nb_conv3d_plain"]
+__all__ = [
+    "nb_conv3d",
+    "nb_conv3d_stats",
+    "nb_conv3d_plain",
+    "nb_conv3d_dw",
+    "nb_conv3d_dw_plain",
+]
 
-_C_ARGTYPES = [
+_FWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
+]
+_DW_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -76,28 +93,48 @@ def nb_conv3d_plain(xs, k3, with_stats=False):
     return y, yf.sum(dim=(1, 2, 3)), (yf * yf).sum(dim=(1, 2, 3))
 
 
+def nb_conv3d_dw_plain(xs, g):
+    """Plain PyTorch dL/dW: f32 ``conv3d_weight`` of the concatenated
+    segments against the output cotangent ``g``; returns f32
+    ``(27, Cin, Cout)``."""
+    xs = _segments(xs)
+    x = torch.cat(xs, dim=-1) if len(xs) > 1 else xs[0]
+    cin, cout = x.shape[-1], g.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(
+        x.permute(0, 4, 1, 2, 3).float(), (cout, cin, 3, 3, 3),
+        g.permute(0, 4, 1, 2, 3).float(), padding=1,
+    )
+    return dw.permute(2, 3, 4, 1, 0).reshape(27, cin, cout)
+
+
+def _check_cuda(tensors, what):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(
+            f"the CUDA {what} kernel takes bf16 tensors; got "
+            f"{[t.dtype for t in tensors]}"
+        )
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: tensors are on different devices")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"the CUDA {what} kernel needs contiguous, "
+                         "16-byte aligned tensors")
+
+
 def _launch(xs, k, with_stats):
     from exaspim_tpu_torch.ops._build import load_library
 
+    _check_cuda((*xs, k), "conv")
     x0 = xs[0]
-    if x0.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
-        raise TypeError(
-            "the CUDA conv kernel takes bf16 activations and taps; got "
-            f"{x0.dtype} / {k.dtype}"
-        )
-    if k.device != x0.device:
-        raise ValueError("taps and activations are on different devices")
-    if not all(x.is_contiguous() for x in xs) or not k.is_contiguous():
-        raise ValueError("the CUDA conv kernel needs contiguous tensors")
     b, d, h, w = x0.shape[:4]
     cout = k.shape[-1]
     if cout % 8:
         raise ValueError(f"Cout must be a multiple of 8, got {cout}")
     if d * h * w >= 2 ** 31:
         raise ValueError("D·H·W must fit a 32-bit index")
-    lib = load_library("nb_conv3d")
-    fn = lib.nb_conv3d_bf16
-    fn.argtypes = _C_ARGTYPES
+    fn = load_library("nb_conv3d").nb_conv3d_bf16
+    fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
     out = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16,
                       device=x0.device)
@@ -123,6 +160,139 @@ def _launch(xs, k, with_stats):
     return (out, s1, s2) if with_stats else out
 
 
+def _conv(xs, k, with_stats):
+    """One forward conv on the tensors' device, outside autograd."""
+    if xs[0].device.type == "cpu":
+        return nb_conv3d_plain(xs, k, with_stats)
+    if xs[0].device.type != "cuda":
+        raise ValueError(f"unsupported device {xs[0].device}")
+    return _launch(xs, k, with_stats)
+
+
+# Workspace splits of the dL/dW kernel: enough (M, N, split) blocks to fill
+# the card several times over, at least 16 K steps of 64 voxels per split.
+_DW_TARGET_BLOCKS = 2048
+_DW_MIN_STEPS = 16
+
+
+def _dw_splits(nvox, segs, cout):
+    cin = sum(segs)
+    aligned = all(c % 32 == 0 for c in segs)
+    mblocks = 9 * (cin // 32) if aligned else -(-27 * cin // 32)
+    bn = 64 if cout % 64 == 0 else 32
+    base = mblocks * -(-cout // bn)
+    steps = -(-nvox // 64)
+    want = -(-_DW_TARGET_BLOCKS // base)
+    return max(1, min(want, steps // _DW_MIN_STEPS, 4096))
+
+
+def _launch_dw(xs, g):
+    from exaspim_tpu_torch.ops._build import load_library
+
+    _check_cuda((*xs, g), "dL/dW")
+    b, d, h, w = g.shape[:4]
+    cout = g.shape[-1]
+    if cout % 8:
+        raise ValueError(f"Cout must be a multiple of 8, got {cout}")
+    if d * h * w >= 2 ** 31:
+        raise ValueError("D·H·W must fit a 32-bit index")
+    segs = [x.shape[-1] for x in xs]
+    cin = sum(segs)
+    splits = _dw_splits(b * d * h * w, segs, cout)
+    ws = torch.empty((splits, 27, cin, cout), dtype=torch.float32,
+                     device=g.device)
+    out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
+    fn = load_library("nb_conv3d_dw").nb_conv3d_dw_bf16
+    fn.argtypes = _DW_ARGTYPES
+    fn.restype = ctypes.c_int
+    xa = xs[0]
+    xb = xs[1] if len(xs) > 1 else None
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(
+            xa.data_ptr(), None if xb is None else xb.data_ptr(),
+            segs[0], 0 if xb is None else segs[1], g.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), b, d, h, w, cout, splits, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"nb_conv3d_dw kernel launch failed: cudaError {rc}")
+    nb_conv3d_dw.launches += 1
+    return out
+
+
+def nb_conv3d_dw(xs, g):
+    """dL/dW of the 3³ SAME conv: f32 ``(27, Cin, Cout)`` with
+    ``dW[tap, c, n] = Σ_{b, v} x[b, v + δ_tap, c] · g[b, v, n]`` (taps
+    outside the volume read zero).
+
+    ``xs`` are the conv's input segments, ``g`` the output cotangent
+    ``(B, D, H, W, Cout)``. CUDA tensors go through ``csrc/nb_conv3d_dw.cu``
+    (bf16, contiguous) and count one launch in ``nb_conv3d_dw.launches``;
+    CPU tensors go through :func:`nb_conv3d_dw_plain`.
+    """
+    xs = _segments(xs)
+    if g.dim() != 5 or g.shape[:4] != xs[0].shape[:4]:
+        raise ValueError(f"g {tuple(g.shape)} does not match the input "
+                         f"{tuple(xs[0].shape)}")
+    if g.device.type == "cpu":
+        return nb_conv3d_dw_plain(xs, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    return _launch_dw(xs, g)
+
+
+nb_conv3d_dw.launches = 0
+
+
+class _Conv3d(torch.autograd.Function):
+    """3³ SAME conv with a backward on the same kernels.
+
+    ``forward(with_stats, k, *xs)`` saves the segments and the taps (and
+    ``y`` with stats). Backward, as ``_bwd_from_g`` and ``_stats_vjp_bwd``
+    (``exaspim_tpu/ops/nb_conv.py:848, 943``):
+
+    * g = (ḡ_y + ḡ₁ + 2·y·ḡ₂) in f32, cast to y's dtype (stats only);
+    * dL/dx = the forward conv of g with the taps flipped over the 27 taps
+      and transposed to ``(27, Cout, Cin)``, split back onto the segments;
+      skipped for segments that need no gradient;
+    * dL/dW = :func:`nb_conv3d_dw` (f32), cast to the taps' dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, with_stats, k, *xs):
+        res = _conv(xs, k, with_stats)
+        ctx.with_stats = with_stats
+        ctx.save_for_backward(k, *xs, *((res[0],) if with_stats else ()))
+        return res
+
+    @staticmethod
+    def backward(ctx, g_y, g_s1=None, g_s2=None):
+        k, *xs = ctx.saved_tensors
+        if ctx.with_stats:
+            y = xs.pop()
+            g = (g_y.float() + g_s1.float()[:, None, None, None, :]
+                 + 2.0 * y.float() * g_s2.float()[:, None, None, None, :])
+            g = g.to(y.dtype)
+        else:
+            g = g_y.to(xs[0].dtype)
+        g = g.contiguous()
+        need_dk = ctx.needs_input_grad[1]
+        need_dx = ctx.needs_input_grad[2:]
+        dxs = [None] * len(xs)
+        if any(need_dx):
+            k_t = k.flip(0).transpose(1, 2).contiguous()
+            dx_all = _conv((g,), k_t, False)
+            o = 0
+            for i, x in enumerate(xs):
+                c = x.shape[-1]
+                if need_dx[i]:
+                    dxs[i] = dx_all[..., o:o + c].contiguous()
+                o += c
+        dk = nb_conv3d_dw(xs, g).to(k.dtype) if need_dk else None
+        return (None, dk, *dxs)
+
+
 def nb_conv3d(xs, k3, with_stats=False):
     """3³ SAME conv, no bias, f32 accumulation, output in the input dtype.
 
@@ -135,23 +305,12 @@ def nb_conv3d(xs, k3, with_stats=False):
 
     CUDA tensors go through the Hopper kernel (bf16, contiguous) and
     count one launch in ``nb_conv3d.launches``; CPU tensors go through
-    :func:`nb_conv3d_plain`.
+    :func:`nb_conv3d_plain`. Differentiable in ``xs`` and ``k3``: the
+    backward runs on the same kernels (see :class:`_Conv3d`).
     """
     xs = _segments(xs)
     k = _taps(k3, sum(x.shape[-1] for x in xs))
-    if torch.is_grad_enabled() and (
-        k.requires_grad or any(x.requires_grad for x in xs)
-    ):
-        raise NotImplementedError(
-            "nb_conv3d has no backward yet: gradients (the dL/dW kernel and "
-            "the autograd Function) come with the training slice; call it "
-            "under torch.no_grad() / torch.inference_mode()"
-        )
-    if xs[0].device.type == "cpu":
-        return nb_conv3d_plain(xs, k, with_stats)
-    if xs[0].device.type != "cuda":
-        raise ValueError(f"unsupported device {xs[0].device}")
-    return _launch(xs, k, with_stats)
+    return _Conv3d.apply(bool(with_stats), k, *xs)
 
 
 nb_conv3d.launches = 0

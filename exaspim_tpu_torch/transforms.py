@@ -55,11 +55,15 @@ class IntensityTransform:
         """Maps normalized values to unclipped float32 counts."""
         raise NotImplementedError
 
+    def inverse_counts(self, y):
+        """Maps normalized values to raw counts kept on ``y``'s device: an
+        int32 tensor of 0..max_count (the quantization of :meth:`inverse`)."""
+        counts = self.inverse_float(y).clamp(0.0, self.max_count)
+        return torch.round(counts).to(torch.int32)
+
     def inverse(self, y):
         """Maps normalized values to raw counts: a numpy uint16 array."""
-        counts = self.inverse_float(y).clamp(0.0, self.max_count)
-        q = torch.round(counts).to(torch.int32)
-        return q.cpu().numpy().astype(np.uint16)
+        return self.inverse_counts(y).cpu().numpy().astype(np.uint16)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,6 +5,7 @@ against the Pallas kernel ``nb_conv3d_stats`` run in interpret mode (as
 tests/test_nb_conv.py runs it), and the Cin = 1 entry conv against
 ``lax.conv_general_dilated``. Tolerance 1e-4 (f32 sums in another order);
 the stats are compared after folding the reference's four parity lanes.
+The gradients are held against JAX in tests/test_torch_port_nb_conv_grad.py.
 """
 
 import jax
@@ -85,6 +86,13 @@ def test_rejects_bad_inputs():
     with pytest.raises(ValueError):
         nb_conv3d((x, torch.zeros(1, 4, 8, 6, 32)),
                   torch.zeros(3, 3, 3, 64, 32))  # segment shapes differ
-    with pytest.raises(NotImplementedError, match="training slice"):
-        nb_conv3d(x.requires_grad_(), torch.zeros(3, 3, 3, 32, 32))
+    # Gradients flow: all-ones input and taps, cotangent 1. An interior
+    # voxel's dL/dx sums 27 taps × 32 outputs; the centre tap's dL/dW sums
+    # all 1·4·8·8 voxels.
+    x1 = torch.ones(1, 4, 8, 8, 32, requires_grad=True)
+    k1 = torch.ones(3, 3, 3, 32, 32, requires_grad=True)
+    nb_conv3d(x1, k1).sum().backward()
+    assert x1.grad.shape == x1.shape and k1.grad.shape == k1.shape
+    assert float(x1.grad[0, 1, 3, 3, 0]) == 27 * 32
+    assert torch.all(k1.grad[1, 1, 1] == 4 * 8 * 8)
 
