@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card and ``nvcc`` (it builds the three kernels of
+CUDA card and ``nvcc`` (it builds the six kernel sources of
 ``exaspim_tpu_torch/csrc/`` for ``sm_90a`` into
 ``exaspim_tpu_torch/build/``, one nvcc process each, in parallel) and
 exits non-zero without a card. Phases, each announced by a ``# phase:``
@@ -44,7 +44,19 @@ line:
     the best checkpoint reloaded through ``restore_pipeline`` to denoise a
     48³ block; then the step time over a window: two ``train()`` runs of
     8 and 40 steps at the default ``log_every`` and ``val_every``, their
-    wall-time difference over the 32 steps between them.
+    wall-time difference over the 32 steps between them;
+11. BM4D matching kernels vs plain at the default parameters (block 4,
+    step 3, search 9, group 16): the distance table and the selected
+    starts on a 64³ raw patch, on its stage-1 estimate and on a 128³
+    volume (padded to 130³), each kernel timed beside its plain version
+    and the card's bound, the selection also beside one ``torch.topk``;
+12. teacher path: ``precompute(split="val", n=16)`` at its defaults writes
+    a cache of 64³ patches with BM4D teachers; launches counted, the
+    cache reopened, teachers held against the clean phantoms, patch 0
+    against the CPU path and against a second run on the card, then
+    seconds per patch and a profile of one ``bm4d`` call;
+13. asinh kernels vs plain on the 256³ block of phase 4 (uint16 → f32 and
+    back), beside ``AsinhTransform`` and the bytes bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -65,7 +77,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "bm4dnet.msgpack")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 WORK = os.path.join(ROOT, "chip_smoke_work")  # caches + runs, removed after
-KERNELS = ("nb_conv3d", "nb_conv3d_dw", "byte_histogram")
+KERNELS = ("nb_conv3d", "nb_conv3d_dw", "byte_histogram", "bm4d_match",
+           "bm4d_select", "asinh_transform")
 BLOCK, OVERLAP, TRIM = 256, 12, 5
 
 # The quality guard of bench.py (quality_ok), with the same limits.
@@ -77,6 +90,7 @@ REF_R05 = {"cratio_gain": 2.025, "psnr_gain_db": 9.72, "ssim_denoised": 0.9999}
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bound.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain: both round one f32 sum to bf16, in different orders, so
@@ -104,6 +118,21 @@ GRAD_REL_L2_BF16 = 0.15
 GRAD_REL_L2_F32 = 0.2
 FAULTS = ("no stats fold", "dL/dx taps not flipped", "dL/dW tap 0 zeroed")
 TRAIN_STEPS, VAL_EVERY, N_TRAIN, N_VAL, PATCH = 12, 6, 128, 32, 64
+# BM4D at the defaults of precompute(): block, group, step, search, sigma.
+BM_B, BM_K, BM_STEP, BM_W, BM_SIGMA = 4, 16, 3, 9, 24.0
+N_TEACHERS, TEACHER_SEED = 16, 42
+# The match kernel and its plain version do the same f32 operations in the
+# same order, so the tables are expected bit-equal; an entry may differ by
+# one bf16 ulp only where a compiler reorders an f32 sum across a rounding
+# boundary.
+TABLE_MAX_ULPS = 1
+# Card vs CPU teacher: the groups are equal; f32 sums in another order may
+# flip a coefficient at the 2.7 sigma threshold or a count at a .5
+# boundary.
+TEACHER_MAX_COUNTS, TEACHER_MAX_SHARE = 1, 1e-3
+# asinh forward vs the plain log form: logf and sqrtf against torch's, a
+# few f32 ulps; against AsinhTransform (true asinh) the log-form identity.
+ASINH_MAX_ULPS, ASINH_ATOL, ASINH_INV_SHARE = 4, 1e-6, 1e-3
 WINDOW_EPOCHS = (2, 10)  # of 4 steps: the step-time window is 32 steps
 
 _T0 = time.time()
@@ -139,8 +168,8 @@ def shape_name(n, segs, cout):
     return f"{n}^3 {cin}->{cout}"
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -595,9 +624,13 @@ def cached_step(train_dir, state, transform):
 
 def per_step(recs, counts):
     """Sums over one run of the path: each shape's record weighted by its
-    launches in that run."""
+    launches in that run (``library_ms`` stays None for a kernel without
+    a library call)."""
     tot = {k: sum(c * r[k] for c, r in zip(counts, recs))
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+           for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in recs]
+    tot["library_ms"] = None if None in lib else sum(
+        c * v for c, v in zip(counts, lib))
     ops = sum(c * r["bound_ms"] for c, r in zip(counts, recs)
               if r["bound_by"] == "operations")
     return {"max_abs_err": max(r["max_abs_err"] for r in recs), **tot,
@@ -770,20 +803,340 @@ def training_path(train_dir, val_dir):
     }
 
 
+def match_operations(shape, grid):
+    """f32 operations the distance table needs when nothing is computed
+    twice, at the rounding points and in the summation order of the
+    function: a squared difference (subtract, multiply) once per unordered
+    voxel pair within the window (the pair of Δ is the pair of −Δ seen from
+    the other voxel, and a reflected neighbour is an in-volume one), then
+    per offset the three strided box sums of B−1 adds each, over z on every
+    (y, x) column, over y on the reference rows, over x on the references."""
+    Z, Y, X = shape
+    gz, gy, gx = grid
+    w3 = BM_W ** 3
+    squares = 2.0 * Z * Y * X * (w3 - 1) / 2
+    sums = (BM_B - 1.0) * w3 * (gz * Y * X + gz * gy * X + gz * gy * gx)
+    return squares + sums
+
+
+def check_matching(name, vol):
+    """Phase 11 on one volume: the match and select kernels against their
+    plain versions on the card. Returns their two records."""
+    import torch
+
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+
+    g = torch.as_tensor(vol, dtype=torch.float32, device="cuda")
+    grid = tm.grid_shape(g.shape, BM_B, BM_STEP)
+    refs = grid[0] * grid[1] * grid[2]
+    table = tm.match_distances(g, BM_B, BM_STEP, BM_W)
+    plain = tm.match_distances_plain(g, BM_B, BM_STEP, BM_W)
+    torch.cuda.synchronize()
+    # Non-negative bf16 values order as their bits: the gap in ulps.
+    ulps = (table.view(torch.int16).int() - plain.view(torch.int16).int()).abs()
+    share, worst = float((ulps > 0).float().mean()), int(ulps.max())
+    err = float((table.float() - plain.float()).abs().max())
+    if not torch.isfinite(table.float()).all() or worst > TABLE_MAX_ULPS:
+        fail(f"bm4d_match {name}: table off by {worst} bf16 ulps "
+             f"(share {share:.3e}, limit {TABLE_MAX_ULPS})")
+    del plain, ulps
+    starts = tm.select_topk(table, grid, BM_K, BM_STEP, BM_W)
+    want = tm.select_topk_plain(table, grid, BM_K, BM_STEP, BM_W)
+    torch.cuda.synchronize()
+    sel_err = max(int((a - b).abs().max()) for a, b in zip(starts, want))
+    if sel_err:
+        fail(f"bm4d_select {name}: starts differ from the plain version on "
+             f"the kernel's own table (max {sel_err})")
+    r = torch.arange(refs, device="cuda", dtype=torch.int32)
+    ref_grid = (BM_STEP * (r // (grid[1] * grid[2])),
+                BM_STEP * ((r // grid[2]) % grid[1]), BM_STEP * (r % grid[2]))
+    if not all(torch.equal(s[:, 0], w) for s, w in zip(starts, ref_grid)):
+        fail(f"bm4d_select {name}: member 0 is not the reference itself")
+    del starts, want
+
+    w3 = BM_W ** 3
+    m_ms = cuda_ms(lambda: tm.match_distances(g, BM_B, BM_STEP, BM_W), 20)
+    m_plain = cuda_ms(
+        lambda: tm.match_distances_plain(g, BM_B, BM_STEP, BM_W), 2)
+    s_ms = cuda_ms(
+        lambda: tm.select_topk(table, grid, BM_K, BM_STEP, BM_W), 20)
+    s_plain = cuda_ms(
+        lambda: tm.select_topk_plain(table, grid, BM_K, BM_STEP, BM_W), 3)
+    keys = tm._keys(table, BM_W)
+    s_lib = cuda_ms(lambda: torch.topk(keys, BM_K, dim=1, largest=False), 5)
+    del keys
+    # No matrix product is in the function: the FP32 vector peak applies,
+    # to the operations of the separable evaluation (shared squared
+    # differences, box sums axis by axis), not to the kernel's own
+    # 3·B³ per entry.
+    match = {"shape": name, "refs": refs, "max_abs_err": err,
+             "differ_share": share, "max_ulps": worst, "ms": m_ms,
+             "plain_ms": m_plain, "library_ms": None,
+             **bound(match_operations(g.shape, grid),
+                     4 * g.numel() + 2 * refs * w3, PEAK_F32_FLOPS)}
+    select = {"shape": name, "refs": refs, "max_abs_err": float(sel_err),
+              "ms": s_ms, "plain_ms": s_plain, "library_ms": s_lib,
+              **bound(0.0, 2 * refs * w3 + 3 * 4 * refs * BM_K)}
+    print(f"{name}: {refs} refs x {w3} offsets; table differs from plain on "
+          f"share {share:.3e} of entries, worst {worst} bf16 ulps (limit "
+          f"{TABLE_MAX_ULPS}), max|d|={err:.3e}; starts equal on the kernel's "
+          f"table, member 0 = reference\n  bm4d_match  kernel_ms={m_ms:.4f} "
+          f"plain_ms={m_plain:.4f} bound_ms={match['bound_ms']:.4f} "
+          f"({match['bound_by']})\n  bm4d_select kernel_ms={s_ms:.4f} "
+          f"plain_ms={s_plain:.4f} library_ms={s_lib:.4f} (one torch.topk) "
+          f"bound_ms={select['bound_ms']:.4f} ({select['bound_by']})",
+          flush=True)
+    return match, select
+
+
+def matching_kernels():
+    """Phase 11 on three volumes; returns the records of the two 64³ ones
+    (what one patch of the teacher path gives the kernels) and of the
+    130³ one."""
+    import torch
+
+    from exaspim_tpu_torch.data.synthetic import (
+        SyntheticPatchDataset,
+        neurite_phantom,
+        noisy_observation,
+    )
+    from exaspim_tpu_torch.ops.bm4d import bm4d
+
+    raw, _ = SyntheticPatchDataset(n=1, seed=TEACHER_SEED).raw_and_fg(0)
+    raw = raw.astype(np.float32)
+    basic = bm4d(raw, BM_SIGMA, two_stage=False)  # smooth: ties everywhere
+    big = noisy_observation(neurite_phantom((128,) * 3, seed=0)[0], seed=1)
+    big = np.pad(big.astype(np.float32), [(0, 2)] * 3, mode="reflect")
+    recs = [check_matching("64^3 raw patch", raw),
+            check_matching("64^3 stage-1 estimate", basic),
+            check_matching("130^3 volume", big)]
+    torch.cuda.empty_cache()
+    return {"match": [r[0] for r in recs], "select": [r[1] for r in recs]}
+
+
+def teacher_path():
+    """Phase 12: precompute() at its defaults on the card; returns the
+    record and the launch counts of the counted run."""
+    import torch
+    from scipy import ndimage
+
+    from exaspim_tpu_torch.data.cache import CachedValidateDataset
+    from exaspim_tpu_torch.data.precompute import SEED_STREAMS, precompute
+    from exaspim_tpu_torch.data.synthetic import neurite_phantom
+    from exaspim_tpu_torch.ops.bm4d import bm4d, bm4d_batch
+    from exaspim_tpu_torch.ops.bm4d_match import match_distances, select_topk
+
+    out = os.path.join(WORK, "teachers")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    match_distances.launches = select_topk.launches = 0
+    t0 = time.perf_counter()
+    precompute(out, split="val", source="synthetic", n=N_TEACHERS,
+               seed=TEACHER_SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"bm4d_match": match_distances.launches,
+                "bm4d_select": select_topk.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"bm4d_match": 2 * N_TEACHERS, "bm4d_select": 2 * N_TEACHERS}
+    print(f"precompute(): {N_TEACHERS} patches of {PATCH}^3 in {wall:.3f} s "
+          f"({wall / N_TEACHERS:.4f} s per patch, phantom synthesis on the "
+          f"host included); launches {launches} (expected {want}); peak "
+          f"device memory {peak_gb:.3f} GiB", flush=True)
+    if launches != want:
+        fail(f"teacher launches {launches}, expected {want}")
+
+    ds = CachedValidateDataset(out)
+    if len(ds) != N_TEACHERS or ds.patch_shape != (PATCH,) * 3:
+        fail(f"cache: {len(ds)} items of {ds.patch_shape}")
+    raws = np.stack([ds[i][0] for i in range(N_TEACHERS)])
+    teachers = np.stack([ds[i][1] for i in range(N_TEACHERS)])
+    if raws.dtype != np.uint16 or teachers.dtype != np.uint16:
+        fail(f"cache dtypes {raws.dtype} {teachers.dtype}")
+
+    # The clean phantoms, from the seeds precompute() gave the dataset.
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
+
+    seed = TEACHER_SEED + SEED_STREAMS["val"]
+    e_raw, e_teacher, e_gauss = [], [], []
+    for i in range(N_TEACHERS):
+        s1, _ = np.random.SeedSequence([seed, i]).spawn(2)
+        clean, _ = neurite_phantom((PATCH,) * 3, n_tubes=4,
+                                   seed=int(s1.generate_state(1)[0]))
+        e_raw.append(rmse(raws[i], clean))
+        e_teacher.append(rmse(teachers[i], clean))
+        e_gauss.append(rmse(np.round(ndimage.gaussian_filter(
+            raws[i].astype(np.float32), 1.0)), clean))
+    e_raw, e_teacher, e_gauss = (float(np.mean(e))
+                                 for e in (e_raw, e_teacher, e_gauss))
+    print(f"mean RMSE against the clean phantoms: raw {e_raw:.4f}, BM4D "
+          f"teacher {e_teacher:.4f}, Gaussian teacher {e_gauss:.4f} counts",
+          flush=True)
+    if not np.isfinite(e_teacher) or not e_teacher < e_raw:
+        fail(f"the teachers ({e_teacher}) do not beat the raw patches "
+             f"({e_raw}) against the clean phantoms")
+
+    # Patch 0: two more runs on the card, and the CPU path (plain versions).
+    vol = raws[0].astype(np.float32)
+    first, again = bm4d(vol, BM_SIGMA), bm4d(vol, BM_SIGMA)
+    torch.cuda.synchronize()
+    card = np.clip(np.round(first.cpu().numpy()), 0, 65535).astype(np.uint16)
+    if not torch.equal(first, again) or not np.array_equal(card, teachers[0]):
+        fail("two card runs of patch 0 differ: the teacher depends on "
+             "scheduling")
+    t0 = time.perf_counter()
+    cpu = bm4d(vol, BM_SIGMA, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    d = np.abs(np.round(first.cpu().numpy()) - np.round(cpu))
+    share = float((d > 0).mean())
+    print(f"patch 0: two card runs bit-equal; card vs CPU (plain versions, "
+          f"{cpu_s:.2f} s): max {d.max():.0f} count(s) on share {share:.3e} "
+          f"of voxels (limits {TEACHER_MAX_COUNTS}, {TEACHER_MAX_SHARE})",
+          flush=True)
+    if d.max() > TEACHER_MAX_COUNTS or share > TEACHER_MAX_SHARE:
+        fail("the card's teacher strays from the CPU path")
+
+    # The teachers alone (no phantom synthesis, no cache writes).
+    f32 = raws.astype(np.float32)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm4d_batch(f32, BM_SIGMA, step=BM_STEP).cpu()
+        times.append((time.perf_counter() - t0) / N_TEACHERS)
+    sec = float(np.median(times))
+    print(f"bm4d_batch of {N_TEACHERS}: seconds per patch {times} (median "
+          f"{sec:.5f}); {1 / sec:.2f} patches/s, {PATCH ** 3 / sec:.1f} "
+          f"voxels/s", flush=True)
+
+    phase("teacher path: profile of one bm4d call")
+    prof = profile_once(lambda: bm4d(vol, BM_SIGMA), key="bm4d_", warm=True)
+    # Two stages: the profile must hold what the counters saw, 2 + 2.
+    if prof is not None and prof["key_launches"] != 4:
+        fail(f"the profile of one bm4d call lists {prof['key_launches']} "
+             "launches of the matching kernels, the call makes 4")
+    return {"wall_s": wall, "launches": launches, "peak_mem_gb": peak_gb,
+            "rmse_raw": e_raw, "rmse_teacher": e_teacher,
+            "rmse_gauss": e_gauss, "card_vs_cpu_max": float(d.max()),
+            "card_vs_cpu_share": share, "cpu_s": cpu_s,
+            "seconds_per_patch": sec, "patch_s": times,
+            "voxels_per_s": PATCH ** 3 / sec, "profile": prof}
+
+
+def asinh_kernels(img, transform):
+    """Phase 13: the elementwise path on the 256³ block, counted, then the
+    two kernels against their plain versions. Returns their records and
+    the launch counts."""
+    import torch
+
+    from exaspim_tpu_torch.ops.elementwise import (
+        asinh_forward,
+        asinh_forward_plain,
+        asinh_inverse,
+        asinh_inverse_plain,
+    )
+
+    kw = dict(offset=transform.offset, scale=transform.scale,
+              norm=transform._norm)
+    x = torch.from_numpy(img).cuda()
+    asinh_forward.launches = asinh_inverse.launches = 0
+    y = asinh_forward(x, **kw)
+    back = asinh_inverse(y, max_count=transform.max_count, **kw)
+    torch.cuda.synchronize()
+    launches = {"asinh_forward": asinh_forward.launches,
+                "asinh_inverse": asinh_inverse.launches}
+    if launches != {"asinh_forward": 1, "asinh_inverse": 1}:
+        fail(f"elementwise launches {launches}, expected one each")
+    if y.dtype != torch.float32 or back.dtype != torch.uint16 or \
+            not torch.equal(back, x):
+        fail("asinh forward then inverse does not return the input counts")
+
+    yp = asinh_forward_plain(x, **kw)
+    ulp = torch.nextafter(yp.abs(), torch.full_like(yp, float("inf"))) \
+        - yp.abs()
+    f_err = float((y - yp).abs().max())
+    f_ulps = float(((y - yp).abs() / ulp).max())
+    f_true = float((y - transform.forward(x.to(torch.float32))).abs().max())
+    del ulp
+    if not torch.isfinite(y).all() or f_ulps > ASINH_MAX_ULPS \
+            or f_true > ASINH_ATOL:
+        fail(f"asinh_forward: {f_ulps} ulps from the plain version, "
+             f"{f_true} from AsinhTransform.forward")
+    # The inverse on off-lattice values, as a network's output is.
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    yn = yp + 0.01 * torch.randn(yp.shape, generator=gen, device="cuda")
+    del yp
+    got = asinh_inverse(yn, **kw).to(torch.int32)
+    d = (got - asinh_inverse_plain(yn, **kw).to(torch.int32)).abs()
+    i_err, i_share = int(d.max()), float((d > 0).float().mean())
+    d = (got - transform.inverse_counts(yn)).abs()
+    t_err, t_share = int(d.max()), float((d > 0).float().mean())
+    del got, d
+    if max(i_err, t_err) > 1 or max(i_share, t_share) > ASINH_INV_SHARE:
+        fail(f"asinh_inverse: counts off by {i_err} on share {i_share} "
+             f"(plain), {t_err} on {t_share} (AsinhTransform)")
+    n = x.numel()
+    # AsinhTransform computes the same functions in several PyTorch calls
+    # each (cast, affine, asinh or sinh, scale, round, clamp): a yardstick
+    # beside the plain versions, not one library call, so library_ms is None.
+    xf = x.to(torch.float32)
+    f_tr = cuda_ms(lambda: transform.forward(xf), 5)
+    i_tr = cuda_ms(lambda: transform.inverse_counts(yn), 5)
+    del xf
+    recs = {
+        "asinh_forward": {
+            "max_abs_err": f_err, "max_ulps": f_ulps,
+            "ms": cuda_ms(lambda: asinh_forward(x, **kw), 50),
+            "plain_ms": cuda_ms(lambda: asinh_forward_plain(x, **kw), 5),
+            "transform_ms": f_tr, "library_ms": None,
+            **bound(0.0, (2 + 4) * n)},
+        "asinh_inverse": {
+            "max_abs_err": float(i_err), "differ_share": i_share,
+            "ms": cuda_ms(lambda: asinh_inverse(yn, **kw), 50),
+            "plain_ms": cuda_ms(lambda: asinh_inverse_plain(yn, **kw), 5),
+            "transform_ms": i_tr, "library_ms": None,
+            **bound(0.0, (4 + 2) * n)},
+    }
+    f, i = recs["asinh_forward"], recs["asinh_inverse"]
+    print(f"{n} voxels: forward then inverse returns the input counts\n"
+          f"  asinh_forward max|d|={f_err:.3e} ({f_ulps:.2f} ulps of the "
+          f"plain log form, limit {ASINH_MAX_ULPS}; {f_true:.3e} from "
+          f"AsinhTransform.forward, limit {ASINH_ATOL}) "
+          f"kernel_ms={f['ms']:.4f} plain_ms={f['plain_ms']:.4f} "
+          f"AsinhTransform.forward_ms={f_tr:.4f} (several calls, f32 in) "
+          f"bound_ms={f['bound_ms']:.4f} (bytes)\n"
+          f"  asinh_inverse counts differ from plain by {i_err} on share "
+          f"{i_share:.3e}, from AsinhTransform by {t_err} on {t_share:.3e} "
+          f"(limits 1, {ASINH_INV_SHARE}) kernel_ms={i['ms']:.4f} "
+          f"plain_ms={i['plain_ms']:.4f} "
+          f"AsinhTransform.inverse_counts_ms={i_tr:.4f} (several calls) "
+          f"bound_ms={i['bound_ms']:.4f} (bytes)", flush=True)
+    return recs, launches
+
+
 def print_ptxas(build, name):
     for line in build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
 
 
-def profile_once(run, key="nb_conv3d_kernel"):
+def profile_once(run, key="nb_conv3d_kernel", warm=False):
     """Device time by kernel over one run of ``run`` (torch.profiler);
-    ``key`` names the kernels whose share is printed."""
+    ``key`` names the kernels whose share and launch count are reported.
+    ``warm`` first makes one discarded run inside the profiler's warm-up
+    step, so that a short run's first launches are traced too."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)
+                 if warm else None) as prof:
+        if warm:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -792,7 +1145,8 @@ def profile_once(run, key="nb_conv3d_kernel"):
     for ev in prof.key_averages():
         # Device-side events only (kernels, memcpy, memset): the CPU-side
         # aten ops would count their kernels' time a second time.
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.key.startswith("ProfilerStep"):  # the step's own span
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -805,12 +1159,14 @@ def profile_once(run, key="nb_conv3d_kernel"):
         print("profile: no device time recorded (not measured)")
         return None
     conv_s = sum(r[0] for r in rows if key in r[1]) / 1e6
+    key_launches = sum(r[2] for r in rows if key in r[1])
     print(f"profile: wall {wall:.4f} s, device busy {busy_s:.4f} s "
           f"(idle share {max(0.0, 1 - busy_s / wall):.3f}), of which "
-          f"{key} kernels {conv_s:.4f} s")
+          f"{key} kernels {conv_s:.4f} s in {key_launches} launches")
     for dev_us, key, count in rows[:10]:
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
     return {"wall_s": wall, "device_busy_s": busy_s, "conv_s": conv_s,
+            "key_launches": key_launches,
             "top": [[key, dev_us / 1e3, count]
                     for dev_us, key, count in rows[:15]]}
 
@@ -854,7 +1210,7 @@ def main():
     t0 = time.time()
     build_s = _build.build_all(KERNELS)
     record["build_s"] = time.time() - t0
-    print(f"build_s={record['build_s']:.2f} (all three kernels, in parallel; "
+    print(f"build_s={record['build_s']:.2f} (all six sources, in parallel; "
           f"nb_conv3d {build_s['nb_conv3d']:.2f})", flush=True)
     print_ptxas(_build, "nb_conv3d")
 
@@ -1008,7 +1364,23 @@ def main():
 
     phase("training path: train() at the default configuration")
     record["train"] = training_path(train_dir, val_dir)
+    torch.cuda.empty_cache()
+
+    phase("build (BM4D and asinh kernels)")
+    for name in KERNELS[3:]:
+        print(f"{name}: built in {build_s[name]:.2f} s (with phase 2)")
+        print_ptxas(_build, name)
+
+    phase("matching kernels vs plain (block 4, step 3, search 9, group 16)")
+    record["matching_checks"] = matching = matching_kernels()
+
+    phase("teacher path: precompute() at its defaults")
+    record["teachers"] = teacher_path()
     shutil.rmtree(WORK, ignore_errors=True)
+
+    phase("asinh kernels vs plain (256^3 block)")
+    asinh, asinh_launches = asinh_kernels(img, build_transform(transform_cfg))
+    record["asinh_checks"] = asinh
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
@@ -1017,8 +1389,12 @@ def main():
     # Each record reads one path. Training: launches of the counted train()
     # run; ms and bounds summed over one training step's launches (phase 7).
     # Inference: launches of one 256³ block; ms and bounds summed over the
-    # six conv shapes of phase 3, each once.
+    # six conv shapes of phase 3, each once. Teachers: launches of the
+    # counted precompute() run; ms and bounds summed over one patch's two
+    # launches (the 64³ raw patch and its stage-1 estimate, phase 11).
+    # Elementwise: one launch each on the 256³ block.
     runs = record["train"]["launches"]
+    teach = record["teachers"]["launches"]
     kernels = [{
         "name": "nb_conv3d",
         "path": "training",
@@ -1051,7 +1427,33 @@ def main():
         "replaces": "exaspim_tpu/ops/nb_conv.py:358",
         "launches": record["launches_per_block"],
         **per_step(checks, [1] * len(checks)),
-    }]
+    }, {
+        "name": "bm4d_match",
+        "path": "teachers",
+        "route": "cuda",
+        "source": "exaspim_tpu_torch/csrc/bm4d_match.cu",
+        "replaces": "exaspim_tpu/ops/pallas_bm4d.py:53",
+        "launches": teach["bm4d_match"],
+        **per_step(matching["match"][:2], [1, 1]),
+    }, {
+        "name": "bm4d_select",
+        "path": "teachers",
+        "route": "cuda",
+        "source": "exaspim_tpu_torch/csrc/bm4d_select.cu",
+        "replaces": "exaspim_tpu/ops/pallas_bm4d.py:126",
+        "launches": teach["bm4d_select"],
+        **per_step(matching["select"][:2], [1, 1]),
+    }] + [{
+        "name": name,
+        "path": "elementwise",
+        "route": "cuda",
+        "source": "exaspim_tpu_torch/csrc/asinh_transform.cu",
+        "replaces": f"exaspim_tpu/ops/pallas_ops.py:{line}",
+        "launches": asinh_launches[name],
+        **{k: asinh[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, line in (("asinh_forward", 70), ("asinh_inverse", 99))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

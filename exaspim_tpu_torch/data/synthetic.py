@@ -5,8 +5,8 @@ Copies of ``exaspim_tpu/data/synthetic.py``: randomly oriented PSF-blurred
 neurite tubes over a pedestal background, observed with Poisson shot noise
 and Gaussian read noise; the per-index patch dataset with its Gaussian
 teacher, and the cache writer. Same seeds, same volumes as the reference.
-The BM4D teacher (``use_bm4d_teacher=True``) comes with the BM4D slice of
-the port and raises until then.
+The BM4D teacher (``use_bm4d_teacher=True``) is the port's own
+:func:`exaspim_tpu_torch.ops.bm4d.bm4d`, run on the dataset's ``device``.
 """
 
 from __future__ import annotations
@@ -85,23 +85,30 @@ def neurite_phantom_b(shape=(128, 128, 128), seed=0):
     )
 
 
+def _teacher(raw, sigma_bm4d=16.0, device="cuda"):
+    """Classical denoised teacher: BM4D of the raw counts, rounded and
+    clipped to uint16."""
+    from exaspim_tpu_torch.ops.bm4d import bm4d
+
+    den = bm4d(raw.astype(np.float32), sigma_bm4d, device=device)
+    return np.clip(np.round(den.cpu().numpy()), 0, 65535).astype(np.uint16)
+
+
 class SyntheticPatchDataset:
     """Map-style dataset of (raw, teacher, fg) synthetic count patches.
 
     Deterministic per index: item ``i`` is generated from
     ``SeedSequence([seed, i])``, so any worker layout produces identical
     data. The teacher is the Gaussian surrogate (σ = 1, rounded to
-    counts).
+    counts) or, with ``use_bm4d_teacher``, BM4D at ``sigma_bm4d`` computed
+    on ``device``.
     """
 
     fields = ("raw", "teacher", "fg")
 
     def __init__(self, n=64, patch_shape=(64, 64, 64), seed=42,
-                 sigma_bm4d=16.0, use_bm4d_teacher=False, family="a"):
-        if use_bm4d_teacher:
-            raise NotImplementedError(
-                "the BM4D teacher comes with the BM4D slice of the port; "
-                "use_bm4d_teacher=False gives the Gaussian teacher")
+                 sigma_bm4d=16.0, use_bm4d_teacher=False, family="a",
+                 device="cuda"):
         if family not in ("a", "b", "mix"):
             raise ValueError(f"unknown phantom family {family!r}")
         self.n = int(n)
@@ -110,6 +117,7 @@ class SyntheticPatchDataset:
         self.sigma_bm4d = sigma_bm4d
         self.use_bm4d_teacher = use_bm4d_teacher
         self.family = family
+        self.device = device
 
     def __len__(self):
         return self.n
@@ -139,6 +147,8 @@ class SyntheticPatchDataset:
         if not -self.n <= index < self.n:
             raise IndexError(index)
         raw, fg = self.raw_and_fg(index % self.n)
+        if self.use_bm4d_teacher:
+            return raw, _teacher(raw, self.sigma_bm4d, self.device), fg
         teacher = np.clip(
             np.round(ndimage.gaussian_filter(raw.astype(np.float32), 1.0)),
             0, 65535,

@@ -28,8 +28,24 @@ def test_synthetic_items_equal_jax(family):
         for a, b in zip(got[i], want[i]):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tsyn.SyntheticPatchDataset(use_bm4d_teacher=True)
+
+
+def test_bm4d_teacher_dataset():
+    """``use_bm4d_teacher=True``: raw and fg equal the JAX dataset's, the
+    teacher is the port's BM4D. Against the JAX teacher (f32 XLA matcher
+    on the CPU, so other members among near-ties): RMSE ≤ 0.2·σ."""
+    kw = dict(n=2, patch_shape=(16, 16, 16), seed=5, sigma_bm4d=16.0,
+              use_bm4d_teacher=True)
+    got = tsyn.SyntheticPatchDataset(device="cpu", **kw)[1]
+    want = jsyn.SyntheticPatchDataset(**kw)[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[1].dtype == np.uint16 and got[1].shape == (16, 16, 16)
+    gap = np.sqrt(np.mean((got[1].astype(np.float64) - want[1]) ** 2))
+    assert gap <= 0.2 * 16.0, gap
+    gauss = tsyn.SyntheticPatchDataset(device="cpu", **{
+        **kw, "use_bm4d_teacher": False})[1][1]
+    assert not np.array_equal(gauss, got[1])
 
 
 def test_caches_swap_both_ways(tmp_path):

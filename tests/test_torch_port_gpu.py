@@ -1,4 +1,4 @@
-"""The port's Hopper conv kernel against its plain version, on the card.
+"""The port's Hopper kernels against their plain versions, on the card.
 
 These tests need a CUDA card (marker ``gpu``) and skip elsewhere. They
 import nothing of JAX, so they also run on a machine without it:
@@ -122,3 +122,94 @@ def test_autograd_through_kernels_matches_plain():
                          grads("cpu", torch.float32)):
         # bf16 inputs and cotangent against f32: ~0.3 % measured.
         assert float((got - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,block,step,search,group", [
+    ((22, 22, 22), 4, 3, 9, 16), ((19, 16, 13), 4, 3, 5, 8),
+    ((20, 14, 17), 5, 3, 7, 32), ((22, 22, 22), 4, 3, 15, 16),
+])
+def test_match_and_select_kernels_match_plain(shape, block, step, search,
+                                              group):
+    _card()
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+
+    rng = np.random.default_rng(9)
+    vol = _rand(rng, shape, 20.0) + 100.0
+    vol = np.pad(vol, [(0, (-(d - block)) % step) for d in shape],
+                 mode="reflect")
+    g = torch.from_numpy(vol).cuda()
+    before = tm.match_distances.launches, tm.select_topk.launches
+    table = tm.match_distances(g, block, step, search)
+    grid = tm.grid_shape(g.shape, block, step)
+    starts = tm.select_topk(table, grid, group, step, search)
+    assert (tm.match_distances.launches, tm.select_topk.launches) == (
+        before[0] + 1, before[1] + 1)
+    # Same f32 operations in the same order, no FMA contraction: equal
+    # bits, on the card and against the plain version on the CPU.
+    assert torch.equal(table, tm.match_distances_plain(g, block, step, search))
+    assert torch.equal(table.cpu(), tm.match_distances_plain(
+        torch.from_numpy(vol), block, step, search))
+    for a, b in zip(starts, tm.select_topk_plain(table, grid, group, step,
+                                                 search)):
+        assert torch.equal(a, b)
+    for a, b in zip(tm.match_topk(g, block, group, step, search), starts):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_asinh_kernels_match_plain():
+    _card()
+    from exaspim_tpu_torch.ops import elementwise as te
+    from exaspim_tpu_torch.transforms import AsinhTransform
+
+    rng = np.random.default_rng(10)
+    raw = (rng.poisson(300, (33, 31, 29)) + 37).astype(np.uint16)
+    raw.reshape(-1)[:3] = (0, 65535, 100)
+    x = torch.from_numpy(raw).cuda()
+    t = AsinhTransform(offset=100.0, scale=60.0)
+    kw = dict(offset=100.0, scale=60.0, norm=t._norm)
+    before = te.asinh_forward.launches, te.asinh_inverse.launches
+    y = te.asinh_forward(x, **kw)
+    back = te.asinh_inverse(y, **kw)
+    assert (te.asinh_forward.launches, te.asinh_inverse.launches) == (
+        before[0] + 1, before[1] + 1)
+    # Same operations as the plain versions; log, exp and sqrt may round
+    # the last bit differently: 4 f32 ulps, and counts within 1.
+    torch.testing.assert_close(y, te.asinh_forward_plain(x, **kw),
+                               rtol=2.0 ** -21, atol=1e-7)
+    assert torch.equal(y, te.asinh_forward(x.to(torch.float32), **kw))
+    torch.testing.assert_close(y, t.forward(x.to(torch.float32)),
+                               rtol=0, atol=1e-6)
+    assert torch.equal(back.cpu(), torch.from_numpy(raw))
+    noisy = y + 0.01 * torch.randn_like(y)
+    d = (te.asinh_inverse(noisy, **kw).to(torch.int32)
+         - te.asinh_inverse_plain(noisy, **kw).to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_bm4d_on_the_card_is_deterministic_and_matches_the_cpu():
+    _card()
+    import importlib
+
+    from exaspim_tpu_torch.data.synthetic import SyntheticPatchDataset
+
+    tb = importlib.import_module("exaspim_tpu_torch.ops.bm4d")
+    raw, _ = SyntheticPatchDataset(n=1, patch_shape=(32, 32, 32),
+                                   seed=42).raw_and_fg(0)
+    vol = raw.astype(np.float32)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.are_deterministic_algorithms_enabled())
+    a = tb.bm4d(vol, 24.0)
+    assert a.device.type == "cuda"
+    assert torch.equal(a, tb.bm4d(vol, 24.0))  # no float atomics
+    assert flags == (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32,
+                     torch.are_deterministic_algorithms_enabled())
+    cpu = tb.bm4d(vol, 24.0, device="cpu")
+    # Same groups (the tables are bit-equal); sums in another order flip
+    # a rare coefficient at the threshold: teachers within 1 count.
+    d = (a.cpu().round() - cpu.round()).abs()
+    assert float(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
