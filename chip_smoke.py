@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card and ``nvcc`` (it builds the six kernel sources of
+CUDA card and ``nvcc`` (it builds the seven kernel sources of
 ``exaspim_tpu_torch/csrc/`` for ``sm_90a`` into
 ``exaspim_tpu_torch/build/``, one nvcc process each, in parallel) and
 exits non-zero without a card. Phases, each announced by a ``# phase:``
@@ -56,7 +56,29 @@ line:
     against the CPU path and against a second run on the card, then
     seconds per patch and a profile of one ``bm4d`` call;
 13. asinh kernels vs plain on the 256³ block of phase 4 (uint16 → f32 and
-    back), beside ``AsinhTransform`` and the bytes bound.
+    back), beside ``AsinhTransform`` and the bytes bound;
+14. blocked conv vs plain: ``blocked_conv3d`` (the shared-memory halo-tile
+    kernel) against its plain version at the conv bench's three shapes,
+    32→64 and 64→32 at 32³, a small plane and a volume that is no multiple
+    of the kernel's tile (batch 2); dL/dx and dL/dW against an f32
+    reference; one planted fault (unflipped dL/dx taps) that the check must
+    catch; then, at batch 32 (the conv bench's grid), the output held
+    against the plain version again and its time beside the plain
+    version's, cuDNN's and the bound;
+15. conv bench: ``nb_bench.main`` at batch 32 (cuDNN, ``blocked_conv3d``,
+    ``nb_conv3d``; 16 chained applications, CUDA events), launches counted;
+16. pipeline: a 512³ uint16 volume (phase 4's noisy block mirror-tiled)
+    through ``denoise_volume`` at the defaults (two z slabs) and with
+    ``max_block_voxels`` forcing y/x super-tiles, each held against one
+    direct ``predict`` of the whole volume: exactly equal with a pointwise
+    model; with the shipped checkpoint within one count on all but a share
+    of 1e-3 of voxels (two direct runs differ as much: the GroupNorm sums
+    are atomic); seconds, voxels/s, the device-only block rate, conv
+    launches, the idle share of one streamed run, peak device memory;
+17. evaluation: with an exact codec, ``SupervisedEvaluator.run`` on two
+    128³ crops and ``UnsupervisedEvaluator.run`` on four 64³ voxels;
+    without one, the codec-free half on the same four voxels (BM4D ground
+    truth, ``predict_patch``, SSIM, MAE, L∞); matcher launches counted.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -78,7 +100,7 @@ CKPT = os.path.join(ROOT, "checkpoints", "bm4dnet.msgpack")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 WORK = os.path.join(ROOT, "chip_smoke_work")  # caches + runs, removed after
 KERNELS = ("nb_conv3d", "nb_conv3d_dw", "byte_histogram", "bm4d_match",
-           "bm4d_select", "asinh_transform")
+           "bm4d_select", "asinh_transform", "blocked_conv3d")
 BLOCK, OVERLAP, TRIM = 256, 12, 5
 
 # The quality guard of bench.py (quality_ok), with the same limits.
@@ -134,6 +156,30 @@ TEACHER_MAX_COUNTS, TEACHER_MAX_SHARE = 1, 1e-3
 # few f32 ulps; against AsinhTransform (true asinh) the log-form identity.
 ASINH_MAX_ULPS, ASINH_ATOL, ASINH_INV_SHARE = 4, 1e-6, 1e-3
 WINDOW_EPOCHS = (2, 10)  # of 4 steps: the step-time window is 32 steps
+# Blocked conv check (phase 14), (B, D, H, W, Cin, Cout): the bench's three
+# shapes, the two channel changes, a plane with H/2·W/2 < 256, and a volume
+# whose extents are even but no multiple of the kernel's 4 x 4 x 8 tile.
+BLOCKED_SHAPES = ((2, 64, 64, 64, 32, 32), (2, 32, 32, 32, 64, 64),
+                  (2, 16, 16, 16, 128, 128), (2, 32, 32, 32, 32, 64),
+                  (2, 32, 32, 32, 64, 32), (2, 8, 12, 20, 32, 32),
+                  (2, 6, 10, 12, 64, 64))
+BENCH_BATCH = 32
+# Pipeline (phase 16): the volume, and the block bound that forces y/x
+# super-tiles (cores (96, 176, 512) at patch 96: 18 tiles).
+PIPE_N, PIPE_MAX_BLOCK = 512, 87_000_000
+# Streamed vs direct predict with the UNet. The GroupNorm statistics are
+# summed with atomicAdd, so two runs of one block differ in the last bits
+# of the sums; a bf16 activation near a rounding boundary then lands on
+# its neighbour (2^-8 of its value), and the difference travels on through
+# the layers. Two direct runs of the same volume differ the same way: on
+# an NVIDIA H100 80GB HBM3 (700 W) by up to 14 counts on 1.3 % of voxels,
+# more than one count on 8.6e-5 of them (this phase prints the reading of
+# two direct runs beside every streamed run's). So
+# the streamed volume is held within 1 count of the direct one on all but
+# a share of 1e-3 of voxels, every voxel within bf16 reach (the relative
+# limit of phase 4's CPU check), and exactly only with a pointwise model.
+PIPE_MAX_COUNTS, PIPE_MAX_SHARE, PIPE_MAX_REL = 1, 1e-3, 0.05
+EVAL_VOXELS = ((0, 0, 0), (64, 96, 128), (192, 64, 32), (128, 192, 192))
 
 _T0 = time.time()
 
@@ -1115,6 +1161,442 @@ def asinh_kernels(img, transform):
     return recs, launches
 
 
+def vjp_reading(got, ref, mag):
+    """Largest |Δ| / allowance of a bf16 gradient against its f32
+    reference (phase 9's per-conv allowance: the result's own bf16 rounding
+    plus ``DW_RTOL`` of the same contraction over |·|)."""
+    d = (got.float() - ref).abs()
+    allow = (BF16_HALF_ULP * ref.abs() + DW_RTOL * mag).clamp(min=1e-30)
+    return float((d / allow).max())
+
+
+def check_blocked(b, d, h, w, cin, cout, seed):
+    """Phase 14 at one shape: ``blocked_conv3d`` against its plain version,
+    its two gradients against an f32 reference, and the planted fault."""
+    import torch
+
+    from exaspim_tpu_torch.ops import blocked_conv as bc
+
+    name = f"{d}x{h}x{w} {cin}->{cout}"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, d, h, w, cin), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = (torch.randn((3, 3, 3, cin, cout), generator=gen, device="cuda")
+         / np.sqrt(27 * cin)).to(torch.bfloat16)
+    g = (torch.randn((b, d, h, w, cout), generator=gen, device="cuda")
+         * 0.1).to(torch.bfloat16)
+    before = bc.blocked_conv3d.launches
+    with torch.no_grad():
+        y = bc.blocked_conv3d(x, k)
+        plain = bc.blocked_conv3d_plain(x, k)
+    torch.cuda.synchronize()
+    if bc.blocked_conv3d.launches != before + 1:
+        fail(f"blocked {name}: one call counted "
+             f"{bc.blocked_conv3d.launches - before} launches")
+    yf, pf = y.float(), plain.float()
+    err, scale = float((yf - pf).abs().max()), float(pf.abs().max())
+    if y.shape != plain.shape or not torch.isfinite(yf).all() \
+            or err > OUT_RTOL * scale:
+        fail(f"blocked {name}: output off by {err} (max |plain| {scale})")
+    del yf, pf, plain
+
+    k27 = k.reshape(27, cin, cout).float()
+    ref = conv_vjp(x.float(), k27, g.float())
+    mag = conv_vjp(x.float().abs(), k27.abs(), g.float().abs())
+
+    def grads():
+        xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+        bc.blocked_conv3d(xr, kr).backward(g)
+        return (vjp_reading(xr.grad, ref[0], mag[0]),
+                vjp_reading(kr.grad.reshape(27, cin, cout), ref[1], mag[1]))
+
+    before = bc.blocked_conv3d.launches
+    dx, dw = grads()
+    if bc.blocked_conv3d.launches != before + 2:
+        fail(f"blocked {name}: forward + dL/dx counted "
+             f"{bc.blocked_conv3d.launches - before} launches, expected 2")
+    if max(dx, dw) > 1.0:
+        fail(f"blocked {name}: gradients stray from the f32 reference "
+             f"(|d|/allowance dL/dx {dx:.3f}, dL/dW {dw:.3f})")
+    # Planted fault: dL/dx on channel-swapped but unflipped taps.
+    flip = bc._flip_taps
+    bc._flip_taps = lambda k3: k3.transpose(3, 4).contiguous()
+    try:
+        bad_dx, _ = grads()
+    finally:
+        bc._flip_taps = flip
+    if bad_dx <= 1.0:
+        fail(f"blocked {name}: the check missed unflipped dL/dx taps "
+             f"(|d|/allowance {bad_dx:.3f})")
+    print(f"blocked {name} B={b}: max|d|={err:.3e} (rel {err / scale:.2e} <= "
+          f"{OUT_RTOL:.2e}); |d|/allowance dL/dx {dx:.3f}, dL/dW {dw:.3f} "
+          f"(limit 1); planted unflipped taps read {bad_dx:.3g}: caught",
+          flush=True)
+    return {"shape": name, "batch": b, "max_abs_err": err,
+            "rel_err": err / scale, "dx": dx, "dw": dw, "fault_dx": bad_dx}
+
+
+def time_blocked(b, d, h, w, cin, cout):
+    """``blocked_conv3d`` at one bench shape and batch, where the conv bench
+    runs it: held element-wise against its plain version there (another
+    grid and 64-bit offsets than the batch-2 check), then device ms beside
+    the plain version's, cuDNN's (a yardstick only) and the card's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from exaspim_tpu_torch.ops.blocked_conv import (
+        blocked_conv3d,
+        blocked_conv3d_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn((b, d, h, w, cin), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = (torch.randn((3, 3, 3, cin, cout), generator=gen, device="cuda")
+         / np.sqrt(27 * cin)).to(torch.bfloat16)
+    name = f"{d}x{h}x{w} {cin}->{cout}"
+    with torch.no_grad():
+        y, plain = blocked_conv3d(x, k), blocked_conv3d_plain(x, k)
+        # In bf16, chunked: the difference of two bf16 values is exact in f32
+        # and the full f32 copies of a batch-32 output are not needed.
+        err = max(float((a.float() - p.float()).abs().max())
+                  for a, p in zip(y.split(4), plain.split(4)))
+        scale = float(plain.abs().max())
+        if y.shape != plain.shape or not torch.isfinite(y).all() \
+                or err > OUT_RTOL * scale:
+            fail(f"blocked {name} B={b}: output off by {err} "
+                 f"(max |plain| {scale})")
+        del y, plain
+        ms = cuda_ms(lambda: blocked_conv3d(x, k), 10)
+        plain_ms = cuda_ms(lambda: blocked_conv3d_plain(x, k), 2)
+        xcl = x.permute(0, 4, 1, 2, 3)  # a channels_last_3d view
+        wlib = k.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        library_ms = cuda_ms(lambda: F.conv3d(xcl, wlib, padding=1), 10)
+    vox = b * d * h * w
+    flops = 2.0 * 27 * cin * cout * vox
+    nbytes = 2 * vox * (cin + cout) + 2 * 27 * cin * cout
+    rec = {"shape": name, "batch": b, "max_abs_err": err,
+           "rel_err": err / scale, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **bound(flops, nbytes),
+           "tflops": flops / ms / 1e9}
+    print(f"blocked {name} B={b}: max|d|={err:.3e} (rel {err / scale:.2e} "
+          f"<= {OUT_RTOL:.2e}) kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (cuDNN) "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+          f"{rec['tflops']:.1f} TFLOP/s", flush=True)
+    return rec
+
+
+def blocked_kernel():
+    """Phase 14; returns the check records and the batch-32 time records
+    of the three bench shapes."""
+    import torch
+
+    from exaspim_tpu_torch.ops.nb_bench import SHAPES
+
+    checks = [check_blocked(*s, seed=40 + i)
+              for i, s in enumerate(BLOCKED_SHAPES)]
+    torch.cuda.empty_cache()
+    times = []
+    for d, h, w, cin, cout in SHAPES:
+        times.append(time_blocked(BENCH_BATCH, d, h, w, cin, cout))
+        torch.cuda.empty_cache()
+    return checks, times
+
+
+def conv_bench():
+    """Phase 15: the conv bench entry point at batch 32, counted."""
+    import torch
+
+    from exaspim_tpu_torch.ops import nb_bench
+    from exaspim_tpu_torch.ops.blocked_conv import blocked_conv3d
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
+
+    blocked_conv3d.launches = nb_conv3d.launches = 0
+    out = nb_bench.main(["--batch", str(BENCH_BATCH)])
+    torch.cuda.synchronize()
+    launches = {"blocked_conv3d": blocked_conv3d.launches,
+                "nb_conv3d": nb_conv3d.launches}
+    # Per shape and kernel: one warm-up chain and TIMED_CHAINS timed chains
+    # of REPS applications each.
+    each = len(nb_bench.SHAPES) * nb_bench.REPS * (1 + nb_bench.TIMED_CHAINS)
+    print(f"conv bench launches {launches} (expected {each} each: "
+          f"{len(nb_bench.SHAPES)} shapes x {nb_bench.REPS} applications x "
+          f"(1 warm-up + {nb_bench.TIMED_CHAINS} timed chains))", flush=True)
+    if launches != {"blocked_conv3d": each, "nb_conv3d": each}:
+        fail(f"conv bench launches {launches}, expected {each} each")
+    for row in out["shapes"]:
+        sums = [row[f"{c}_checksum"] for c in ("library", "blocked", "nb")]
+        # Three bf16 chains of 16 convs: the checksums agree loosely.
+        if not np.all(np.isfinite(sums)) or \
+                max(sums) - min(sums) > 0.02 * max(abs(v) for v in sums) + 1:
+            fail(f"conv bench {row['label']}: checksums {sums}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, **out}
+
+
+def count_diff(a, b):
+    """Of ``a`` against the reference ``b``, in counts: the largest |a − b|,
+    the share of voxels that differ, the share more than
+    ``PIPE_MAX_COUNTS`` apart, and the largest |a − b| / (b + 100)."""
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return (int(d.max()), float((d > 0).mean()),
+            float((d > PIPE_MAX_COUNTS).mean()),
+            float((d / (b.astype(np.float32) + 100.0)).max()))
+
+
+def pipeline_path(img, ckpt):
+    """Phase 16 (see the module docstring); ``img`` is phase 4's noisy
+    block, mirror-tiled here to ``PIPE_N``³."""
+    import torch
+
+    from exaspim_tpu_torch.inference import (
+        build_tiled_program,
+        count_patches,
+        plan_stream_cores,
+        plan_tiling,
+        predict,
+    )
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
+    from exaspim_tpu_torch.pipeline import _tile_plan, denoise_volume
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+    from exaspim_tpu_torch.transforms import build_transform
+
+    n, max_block, slab_z = PIPE_N, PIPE_MAX_BLOCK, 256
+    pad = [(0, max(0, n - s)) for s in img.shape]
+    vol = np.pad(img, pad, mode="symmetric")[:n, :n, :n]
+    patch, batch = plan_tiling((min(n, slab_z),) + vol.shape[1:], OVERLAP)
+    kw = dict(patch_size=patch, overlap=OVERLAP, trim=TRIM, batch_size=batch)
+    cores = plan_stream_cores(vol.shape, patch, OVERLAP, max_block)
+    cores = (min(cores[0], max(slab_z, patch)),) + tuple(cores[1:])
+    plans = {
+        "default_slabs": _tile_plan(vol.shape, (max(slab_z, patch),)
+                                    + vol.shape[1:], patch, patch - OVERLAP),
+        "forced_3axis": _tile_plan(vol.shape, cores, patch, patch - OVERLAP),
+    }
+    if cores[1] >= vol.shape[1] and cores[2] >= vol.shape[2]:
+        fail(f"max_block_voxels={max_block} forces no y/x super-tiles "
+             f"(cores {cores})")
+    want = {name: sum(
+        18 * -(-count_patches([hi - lo for _, _, lo, hi in tile], patch,
+                              OVERLAP) // batch) for tile in plan)
+        for name, plan in plans.items()}
+    print(f"volume {vol.shape} {vol.dtype} (the 256^3 block mirror-tiled); "
+          f"patch {patch}, batch {batch}; default plan "
+          f"{len(plans['default_slabs'])} tiles, forced plan cores {cores} "
+          f"{len(plans['forced_3axis'])} tiles", flush=True)
+    runs = {"default_slabs": dict(slab_z=slab_z, patch_size="auto"),
+            "forced_3axis": dict(slab_z=slab_z, patch_size="auto",
+                                 max_block_voxels=max_block)}
+
+    sync = torch.cuda.synchronize
+
+    # (1) A pointwise model: nothing depends on a summation order, so the
+    # streamed volumes must equal the direct one exactly.
+    class DoublePlusOne(torch.nn.Module):
+        def forward(self, x):
+            return x * 2.0 + 0.01
+
+    lin = build_transform({"kind": "linear", "params": {
+        "mn": 0.0, "mx": 1000.0, "clip": 8.0}})
+    direct = predict(vol, DoublePlusOne(), lin, **kw)
+    for name, rkw in runs.items():
+        got = denoise_volume(vol, DoublePlusOne(), lin, overlap=OVERLAP,
+                             trim=TRIM, **rkw)
+        if got.dtype != np.uint16 or not np.array_equal(got, direct):
+            fail(f"pipeline {name}: the pointwise model's streamed volume "
+                 "differs from the direct predict")
+        print(f"pointwise model, {name}: equal to the direct predict",
+              flush=True)
+    del direct, got
+
+    # (2) The shipped checkpoint.
+    model, transform = restore_pipeline(ckpt, dtype=torch.bfloat16)
+    rec = {"shape": list(vol.shape), "patch": patch, "batch": batch,
+           "cores_forced": list(cores)}
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    direct = predict(vol, model, transform, **kw)
+    sync()
+    rec["direct_s"] = time.perf_counter() - t0
+    again = predict(vol, model, transform, **kw)
+    rec["direct_vs_direct"] = count_diff(again, direct)
+    del again
+    rec["peak_mem_direct_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"direct predict {rec['direct_s']:.3f} s "
+          f"({vol.size / rec['direct_s']:.1f} voxels/s), peak device memory "
+          f"{rec['peak_mem_direct_gb']} GiB; a second direct run differs by "
+          f"max {rec['direct_vs_direct'][0]} count(s), on share "
+          f"{rec['direct_vs_direct'][1]:.3e} of voxels, by more than "
+          f"{PIPE_MAX_COUNTS} on share {rec['direct_vs_direct'][2]:.3e}, "
+          f"max |d|/(ref+100) {rec['direct_vs_direct'][3]:.4f}", flush=True)
+    order = (("default_slabs", "cold"), ("default_slabs", "warm"),
+             ("forced_3axis", "once"))
+    for name, tag in order:
+        torch.cuda.reset_peak_memory_stats()
+        nb_conv3d.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out = denoise_volume(vol, model, transform, overlap=OVERLAP,
+                             trim=TRIM, **runs[name])
+        sync()
+        wall = time.perf_counter() - t0
+        mx, share, share2, rel = count_diff(out, direct)
+        r = {"wall_s": wall, "voxels_per_s": vol.size / wall,
+             "launches": nb_conv3d.launches, "max_counts": mx,
+             "share_differ": share, "share_above_1": share2, "max_rel": rel,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        rec[f"{name}_{tag}"] = r
+        print(f"{name} ({tag}): {wall:.3f} s, {vol.size / wall:.1f} voxels/s "
+              f"(host clock, reader thread and copies included); nb_conv3d "
+              f"launches {r['launches']} (expected {want[name]}); vs direct: "
+              f"share more than "
+              f"{PIPE_MAX_COUNTS} count apart {share2:.3e} (limit "
+              f"{PIPE_MAX_SHARE}), max |d|/(ref+100) {rel:.4f} (limit "
+              f"{PIPE_MAX_REL}), max {mx} count(s), share differing "
+              f"{share:.3e}; peak device memory {r['peak_mem_gb']} GiB",
+              flush=True)
+        if out.shape != vol.shape or out.dtype != np.uint16:
+            fail(f"pipeline {name}: output {out.shape} {out.dtype}")
+        if r["launches"] != want[name]:
+            fail(f"pipeline {name}: {r['launches']} conv launches, expected "
+                 f"{want[name]}")
+        if share2 > PIPE_MAX_SHARE or rel > PIPE_MAX_REL:
+            fail(f"pipeline {name}: streamed strays from the direct predict")
+    del out, direct
+
+    phase("pipeline: profile of one default streamed run")
+    rec["profile"] = profile_once(lambda: denoise_volume(
+        vol, model, transform, overlap=OVERLAP, trim=TRIM,
+        **runs["default_slabs"]), key="nb_conv3d")
+
+    # The device-only rate of the default plan's first block: the same
+    # tiled program on a device-resident block, synchronized.
+    (_, _, lo, hi), _, _ = plans["default_slabs"][0]
+    block = vol[lo:hi]
+    program, starts = build_tiled_program(
+        model, transform, block.shape, patch, OVERLAP, TRIM, batch,
+        return_float=True)
+    dblock = torch.from_numpy(block.astype(np.float32)).cuda()
+
+    def device_run():
+        with torch.inference_mode():
+            s = program(dblock, starts).sum()
+        sync()
+        return float(s)
+
+    device_run()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        device_run()
+    dt = (time.perf_counter() - t0) / 2
+    rec["device_only_block"] = {"block": list(block.shape), "s": dt,
+                                "voxels_per_s": block.size / dt}
+    print(f"device-only block {block.shape}: {dt:.3f} s, "
+          f"{block.size / dt:.1f} voxels/s (device-resident input, result "
+          "left on the device)", flush=True)
+    return rec
+
+
+def evaluation_path(img, clean, ckpt):
+    """Phase 17 (see the module docstring) on phase 4's block."""
+    import importlib.util
+
+    import torch
+
+    from exaspim_tpu_torch import evaluate as ev
+    from exaspim_tpu_torch.compression import best_codec
+    from exaspim_tpu_torch.inference import predict_patch
+    from exaspim_tpu_torch.ops.bm4d_match import match_distances, select_topk
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+
+    voxels, side, crop, dtype = EVAL_VOXELS, PATCH, 128, torch.bfloat16
+    out_dir = os.path.join(WORK, "evaluate")
+
+    def read_patch(brain_id, voxel):
+        z, y, x = voxel
+        return img[z:z + side, y:y + side, x:x + side]
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean(
+            (a.astype(np.float64) - b.astype(np.float64)) ** 2)))
+
+    try:
+        best_codec()
+        codec = True
+    except RuntimeError as exc:
+        codec = False
+        print(f"no exact codec ({exc}): the codec-free half runs",
+              flush=True)
+    rec = {"codec": codec}
+    match_distances.launches = select_topk.launches = 0
+    t0 = time.perf_counter()
+    if codec:
+        mips = importlib.util.find_spec("matplotlib") is not None
+        blocks = {f"crop{i}": img[o:o + crop, o:o + crop, o:o + crop]
+                  for i, o in enumerate((0, img.shape[0] - crop))}
+        sup = ev.SupervisedEvaluator(
+            blocks, os.path.join(out_dir, "supervised"), save_mips=mips,
+            patch_size="auto", dtype=dtype)
+        df = sup.run(ckpt)
+        print(df.to_string(index=False), flush=True)
+        if len(df) != 2 or not np.isfinite(df["ssim"]).all() \
+                or not (df["cratio_gain"] > 1.0).all():
+            fail(f"supervised evaluation: {df.to_dict('records')}")
+        rec["supervised"] = df.to_dict("records")
+        uns = ev.UnsupervisedEvaluator(
+            read_patch, os.path.join(out_dir, "unsupervised"),
+            sigma_gt=BM_SIGMA, dtype=dtype)
+        uns.ingest_model(ckpt)
+        key = ("val", "foreground", "phantom")
+        df = uns.run({key: list(voxels)})[key]
+        print(df.to_string(index=False), flush=True)
+        rows = df.to_dict("records")
+    else:
+        model, transform = restore_pipeline(ckpt, dtype=dtype)
+        rows = []
+        for v in voxels:
+            noise = read_patch("phantom", v)
+            gt = ev.bm4d_ground_truth(noise, BM_SIGMA)
+            pred = predict_patch(noise, model, transform)
+            z, y, x = v
+            ref = clean[z:z + side, y:y + side, x:x + side]
+            rows.append({"voxel": str(v),
+                         **ev.quality_metrics(noise, gt, pred),
+                         "rmse_noise": rmse(noise, ref),
+                         "rmse_gt": rmse(gt, ref),
+                         "rmse_pred": rmse(pred, ref)})
+            print(rows[-1], flush=True)
+            if pred.shape != noise.shape or pred.dtype != np.uint16 \
+                    or not rows[-1]["rmse_gt"] < rows[-1]["rmse_noise"] \
+                    or not rows[-1]["rmse_pred"] < rows[-1]["rmse_noise"]:
+                fail(f"evaluation at {v}: {rows[-1]}")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["unsupervised"] = rows
+    launches = {"bm4d_match": match_distances.launches,
+                "bm4d_select": select_topk.launches}
+    want = 2 * len(voxels)
+    print(f"evaluation of {len(voxels)} voxels of {side}^3 in "
+          f"{rec['seconds']:.2f} s; matcher launches {launches} (expected "
+          f"{want} each: 2 stages per ground truth)", flush=True)
+    if launches != {"bm4d_match": want, "bm4d_select": want}:
+        fail(f"evaluation launches {launches}, expected {want} each")
+    for r in rows:
+        # SSIM lies in [-1, 1]; a patch of background only (the first voxel)
+        # has nothing but noise for structure, so its SSIM against the noisy
+        # patch may be negative. The model must stand nearer its ground
+        # truth than the noisy patch it was given.
+        vals = [r[c] for c in ("ssim_noise", "ssim_gt", "l1_gt", "lmax_gt")]
+        if not np.all(np.isfinite(vals)) or not -1 <= r["ssim_noise"] <= 1 \
+                or not r["ssim_noise"] < r["ssim_gt"] <= 1 \
+                or r["l1_gt"] < 0 or r["lmax_gt"] < r["l1_gt"]:
+            fail(f"evaluation metrics: {r}")
+    rec["launches"] = launches
+    return rec
+
+
 def print_ptxas(build, name):
     for line in build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
@@ -1208,9 +1690,11 @@ def main():
 
     phase("build")
     t0 = time.time()
+    if set(KERNELS) != set(_build.KERNELS):
+        fail(f"the package lists the kernel sources {_build.KERNELS}")
     build_s = _build.build_all(KERNELS)
     record["build_s"] = time.time() - t0
-    print(f"build_s={record['build_s']:.2f} (all six sources, in parallel; "
+    print(f"build_s={record['build_s']:.2f} (all seven sources, in parallel; "
           f"nb_conv3d {build_s['nb_conv3d']:.2f})", flush=True)
     print_ptxas(_build, "nb_conv3d")
 
@@ -1334,7 +1818,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase("build (training kernels)")
-    for name in KERNELS[1:]:
+    for name in KERNELS[1:3]:
         print(f"{name}: built in {build_s[name]:.2f} s (with phase 2)")
         print_ptxas(_build, name)
     from exaspim_tpu_torch.train.checkpoint import load_checkpoint
@@ -1367,7 +1851,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase("build (BM4D and asinh kernels)")
-    for name in KERNELS[3:]:
+    for name in KERNELS[3:6]:
         print(f"{name}: built in {build_s[name]:.2f} s (with phase 2)")
         print_ptxas(_build, name)
 
@@ -1382,6 +1866,26 @@ def main():
     asinh, asinh_launches = asinh_kernels(img, build_transform(transform_cfg))
     record["asinh_checks"] = asinh
 
+    phase("build (blocked conv kernel)")
+    print(f"blocked_conv3d: built in {build_s['blocked_conv3d']:.2f} s "
+          "(with phase 2)")
+    print_ptxas(_build, "blocked_conv3d")
+
+    phase("blocked conv vs plain (halo-tile kernel, gradients, one fault)")
+    record["blocked_checks"], blocked_times = blocked_kernel()
+    record["blocked_times"] = blocked_times
+
+    phase(f"conv bench: nb_bench.main at batch {BENCH_BATCH}")
+    record["conv_bench"] = bench = conv_bench()
+
+    phase(f"pipeline: denoise_volume on a {PIPE_N}^3 volume")
+    record["pipeline"] = pipeline_path(img, CKPT)
+    torch.cuda.empty_cache()
+
+    phase("evaluation: BM4D ground truth and metrics on four 64^3 voxels")
+    record["evaluation"] = evaluation_path(img, clean, CKPT)
+    shutil.rmtree(WORK, ignore_errors=True)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)
@@ -1392,7 +1896,9 @@ def main():
     # six conv shapes of phase 3, each once. Teachers: launches of the
     # counted precompute() run; ms and bounds summed over one patch's two
     # launches (the 64³ raw patch and its stage-1 estimate, phase 11).
-    # Elementwise: one launch each on the 256³ block.
+    # Elementwise: one launch each on the 256³ block. Conv bench: launches of
+    # the counted nb_bench.main run; ms and bounds summed over its three
+    # shapes at batch 32, one application each (phase 14's times).
     runs = record["train"]["launches"]
     teach = record["teachers"]["launches"]
     kernels = [{
@@ -1453,7 +1959,15 @@ def main():
         **{k: asinh[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, line in (("asinh_forward", 70), ("asinh_inverse", 99))]
+    } for name, line in (("asinh_forward", 70), ("asinh_inverse", 99))] + [{
+        "name": "blocked_conv3d",
+        "path": "conv bench",
+        "route": "cuda",
+        "source": "exaspim_tpu_torch/csrc/blocked_conv3d.cu",
+        "replaces": "exaspim_tpu/ops/pallas_conv.py:117",
+        "launches": bench["launches"]["blocked_conv3d"],
+        **per_step(blocked_times, [1] * len(blocked_times)),
+    }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

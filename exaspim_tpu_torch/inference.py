@@ -27,6 +27,7 @@ __all__ = [
     "plan_stream_cores",
     "trim_weight_mask",
     "build_tiled_program",
+    "build_volume_transform",
 ]
 
 
@@ -137,16 +138,31 @@ def _parity_canvas(blocks, grid_dims, stride, patch, vol_shape):
     return out
 
 
+def _clip_spec(output_clip):
+    if output_clip is None or output_clip == "input":
+        return output_clip
+    lo, hi = output_clip
+    return float(lo), float(hi)
+
+
 def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
-                        trim=5, batch_size=32, return_float=False):
+                        trim=5, batch_size=32, return_float=False,
+                        output_clip=None):
     """The tiled engine for a block of ``shape``.
 
     Returns ``(program, starts)``: ``program(raw, starts)`` denoises one
     block ``raw`` (a float32 tensor of raw counts on the model's device) and
     ``starts`` is the tail-padded ``(n, 3)`` patch-origin array (the tail
     repeats the last start so every batch is full).
+
+    ``output_clip`` clamps every prediction in the transform domain before
+    the stitch: ``"input"`` to the transformed block's own range, or an
+    explicit ``(lo, hi)``. A self-supervised model can overshoot at rare
+    bright voxels, and an asinh-type inverse turns a small overshoot into a
+    65535 clamp; denoising never needs to exceed the observed range.
     """
     shape = tuple(int(d) for d in shape)
+    output_clip = _clip_spec(output_clip)
     starts = generate_patch_starts(shape, patch_size, overlap)
     stride = patch_size - overlap
     grid_dims = tuple(
@@ -163,6 +179,10 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
 
     def program(raw, starts):
         x = transform.forward(raw)
+        if output_clip == "input":
+            clip_lo, clip_hi = x.min(), x.max()
+        elif output_clip is not None:
+            clip_lo, clip_hi = output_clip
         x = F.pad(x, [0, padded[2] - shape[2], 0, padded[1] - shape[1],
                       0, padded[0] - shape[0]])
         preds, masks = [], []
@@ -172,6 +192,8 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
                 x[z:z + P, y:y + P, w:w + P] for z, y, w in sb.tolist()
             ])
             pred = model(patches[..., None])[..., 0].float()
+            if output_clip is not None:
+                pred = torch.clamp(pred, clip_lo, clip_hi)
             mask = torch.stack([
                 trim_weight_mask(st, P, trim, shape, x.device) for st in sb
             ])
@@ -204,7 +226,7 @@ def _check(img, patch_size, overlap, trim):
 
 def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
             batch_size=32, max_device_voxels=640 ** 3, return_float=False,
-            device="cuda"):
+            output_clip=None, device="cuda"):
     """Denoise a whole volume; returns numpy uint16 counts (or float32
     counts with ``return_float``).
 
@@ -212,6 +234,8 @@ def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
     ``patch_size="auto"`` lets :func:`plan_tiling` choose patch and batch.
     ``model`` must already live on ``device``. Volumes above
     ``max_device_voxels`` stream through halo'd super-tiles.
+    ``output_clip`` (``None``, ``"input"`` or ``(lo, hi)``; see
+    :func:`build_tiled_program`) is taken per super-tile when streaming.
     """
     img = np.asarray(img)
     if img.ndim == 5:
@@ -224,11 +248,11 @@ def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
     if int(np.prod(img.shape)) > max_device_voxels:
         return _predict_streaming(
             img, model, transform, patch_size, overlap, trim, batch_size,
-            max_device_voxels, return_float, device,
+            max_device_voxels, return_float, output_clip, device,
         )
     program, starts = build_tiled_program(
         model, transform, img.shape, patch_size, overlap, trim, batch_size,
-        return_float=return_float,
+        return_float=return_float, output_clip=output_clip,
     )
     raw = torch.from_numpy(np.asarray(img, dtype=np.float32)).to(device)
     with torch.inference_mode():
@@ -257,7 +281,8 @@ def plan_stream_cores(shape, patch_size, overlap, max_device_voxels):
 
 
 def _predict_streaming(img, model, transform, patch_size, overlap, trim,
-                       batch_size, max_device_voxels, return_float, device):
+                       batch_size, max_device_voxels, return_float,
+                       output_clip, device):
     """Denoise super-tiles with a ``patch_size`` halo, each aligned to the
     global stride grid, so every core voxel sees the single-pass context."""
     halo = patch_size
@@ -280,7 +305,8 @@ def _predict_streaming(img, model, transform, patch_size, overlap, trim,
                 res = predict(
                     img[tuple(blk_sl)], model, transform, patch_size,
                     overlap, trim, batch_size, max_device_voxels=2 ** 63,
-                    return_float=return_float, device=device,
+                    return_float=return_float, output_clip=output_clip,
+                    device=device,
                 )
                 out[tuple(core_sl)] = res[tuple(res_sl)]
     return out
@@ -293,3 +319,19 @@ def predict_patch(patch, model, transform, device="cuda"):
     with torch.inference_mode():
         pred = model(x[None, ..., None])[0, ..., 0].float()
     return transform.inverse(pred)
+
+
+def build_volume_transform(transform, img=None, offset=None, percentile=1.0):
+    """Per-volume transform with a background pedestal folded in.
+
+    Prefers a precomputed ``offset`` (the production path); falls back to
+    estimating it from the volume's low percentile, which is for debugging
+    only: an estimate from a crop is biased.
+    """
+    from exaspim_tpu_torch.transforms import estimate_offset, with_offset
+
+    if offset is None:
+        if img is None:
+            raise ValueError("need either a precomputed offset or an img")
+        offset = estimate_offset(np.asarray(img), percentile=percentile)
+    return with_offset(transform, float(offset))

@@ -17,7 +17,12 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load_library", "build_all", "build_log", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_all", "build_log", "KERNELS", "BUILD_DIR",
+           "CSRC_DIR"]
+
+# Every kernel source of the package (``csrc/<name>.cu``).
+KERNELS = ("nb_conv3d", "nb_conv3d_dw", "byte_histogram", "bm4d_match",
+           "bm4d_select", "asinh_transform", "blocked_conv3d")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -46,10 +51,11 @@ def _paths(name):
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build_all(names):
-    """Compile every ``csrc/<name>.cu`` not built yet, one nvcc process per
-    source, all started together; then load them. Returns the seconds
-    each build took (0.0 for a library already built)."""
+def build_all(names=KERNELS):
+    """Compile every ``csrc/<name>.cu`` of ``names`` (default: all seven)
+    not built yet, one nvcc process per source, all started together; then
+    load them. Returns the seconds each build took (0.0 for a library
+    already built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with _lock:
         jobs = {}

@@ -1,8 +1,7 @@
 """3-D SSIM and PSNR in PyTorch.
 
-Counterpart of ``exaspim_tpu/ops/ssim.py`` and the window-16 uniform
-filter of ``exaspim_tpu/ops/filters.py``: a scipy-compatible mean filter
-('reflect' boundary, window ``[i − w//2, i + (w−1)//2]``), C1=(0.01·L)²,
+Counterpart of ``exaspim_tpu/ops/ssim.py``: window-16 mean filters
+(:func:`exaspim_tpu_torch.ops.filters.uniform_filter`), C1=(0.01·L)²,
 C2=(0.03·L)², and the reference's shared-mean shift, which keeps
 ``E[x²] − µ²`` benign in float32 for bright uint16 data.
 """
@@ -10,29 +9,10 @@ C2=(0.03·L)², and the reference's shared-mean shift, which keeps
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-__all__ = ["uniform_filter", "ssim3d", "psnr"]
+from exaspim_tpu_torch.ops.filters import uniform_filter
 
-
-def _symmetric_pad(x, lo, hi, axis):
-    """scipy 'reflect' (numpy 'symmetric'): (d c b a | a b c d | d c b a)."""
-    n = x.shape[axis]
-    head = x.narrow(axis, 0, lo).flip(axis)
-    tail = x.narrow(axis, n - hi, hi).flip(axis)
-    return torch.cat([head, x, tail], dim=axis)
-
-
-def uniform_filter(x, size):
-    """Separable size-``size`` mean filter, like scipy.ndimage.uniform_filter."""
-    for axis in range(x.dim()):
-        xp = _symmetric_pad(x, size // 2, size - 1 - size // 2, axis)
-        xp = xp.movedim(axis, -1)
-        lead = xp.shape[:-1]
-        # avg_pool1d sums in the input dtype without TF32 (a conv would not).
-        y = F.avg_pool1d(xp.reshape(-1, 1, xp.shape[-1]), size, stride=1)
-        x = y.reshape(*lead, y.shape[-1]).movedim(-1, axis)
-    return x
+__all__ = ["uniform_filter", "ssim3d", "psnr", "compute_mae", "compute_lmax"]
 
 
 def ssim3d(img1, img2, data_range=None, window_size=16):
@@ -64,3 +44,17 @@ def psnr(img1, img2, data_range=65535.0):
     b = torch.as_tensor(img2).float().to(a.device)
     mse = ((a - b) ** 2).mean()
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp(mse, min=1e-12))
+
+
+def compute_mae(img1, img2):
+    """Mean absolute error (a 0-d f32 tensor)."""
+    a = torch.as_tensor(img1).float()
+    b = torch.as_tensor(img2).float().to(a.device)
+    return (a - b).abs().mean()
+
+
+def compute_lmax(img1, img2):
+    """Max absolute error (a 0-d f32 tensor)."""
+    a = torch.as_tensor(img1).float()
+    b = torch.as_tensor(img2).float().to(a.device)
+    return (a - b).abs().max()

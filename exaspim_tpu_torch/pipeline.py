@@ -1,0 +1,200 @@
+"""Whole-volume streaming denoise pipeline.
+
+Counterpart of ``exaspim_tpu/pipeline.py``. Whole-brain volumes are far
+larger than host or device memory; this module streams a chunked volume
+through the card in halo'd super-tiles (full-plane z-slabs by default; y/x
+tiled too when ``max_block_voxels`` bounds the device block):
+
+    reader thread (tensorstore chunk fetch, host memory only)
+        → bounded prefetch queue
+        → tiled inference on the device (main thread: every CUDA call)
+        → asynchronous Zarr v3 writes, awaited at the end
+
+Each tile carries a ``patch_size`` halo on interior faces and its low edge
+is aligned to the global stride grid, so the tile-local patch grid is the
+single-pass grid wherever it can touch the core: seams are exact (the same
+argument as :func:`exaspim_tpu_torch.inference._predict_streaming`).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+from exaspim_tpu_torch.inference import plan_stream_cores, plan_tiling, predict
+from exaspim_tpu_torch.utils import img_io
+
+__all__ = ["denoise_volume"]
+
+
+def _tile_plan(shape, cores, halo, stride):
+    """3-axis super-tile plan: per tile, ``(d0, d1, lo, hi)`` per axis.
+
+    ``(d0, d1)`` is the core (written) range, ``(lo, hi)`` the halo'd
+    fetch range with the low edge aligned to the global stride grid.
+    """
+    plan = []
+    for z0 in range(0, shape[0], cores[0]):
+        for y0 in range(0, shape[1], cores[1]):
+            for x0 in range(0, shape[2], cores[2]):
+                tile = []
+                for d0, core, dim in zip((z0, y0, x0), cores, shape):
+                    d1 = min(d0 + core, dim)
+                    lo = max(d0 - halo, 0)
+                    lo -= lo % stride  # align with the global grid
+                    hi = min(d1 + halo, dim)
+                    tile.append((d0, d1, lo, hi))
+                plan.append(tuple(tile))
+    return plan
+
+
+def denoise_volume(img, model, transform, output_path=None, slab_z=256,
+                   patch_size=64, overlap=12, trim=5, batch_size=32,
+                   clevel=5, chunks=(1, 1, 64, 64, 64), prefetch=2,
+                   progress=False, mesh=None, max_block_voxels=None,
+                   device="cuda"):
+    """Denoise an arbitrarily large volume super-tile by super-tile.
+
+    ``img``: the path of a chunked local volume (opened lazily) or an
+    ndarray. With ``output_path`` the result streams into a Zarr v3 array
+    and the path is returned; otherwise the assembled uint16 volume is
+    returned (it must fit host memory). ``model`` lives on ``device``.
+
+    Tiling: full-plane z-slabs of height ``slab_z`` by default (sequential
+    chunk order for typical Zarr layouts). When ``max_block_voxels`` is
+    set, y/x are super-tiled too
+    (:func:`exaspim_tpu_torch.inference.plan_stream_cores`), so volumes
+    whose single plane times the slab height exceeds device memory still
+    stream. Seams are exact either way.
+
+    ``mesh`` (the reference's multi-chip engine) belongs to the multi-GPU
+    slice and raises ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "denoise_volume(mesh=...) is the multi-GPU path "
+            "(parallel/spatial.py predict_sharded), which is not ported yet")
+    src = img_io.read(img) if isinstance(img, str) else img
+    shape = tuple(int(d) for d in src.shape[-3:])
+    Z, Y, X = shape
+    if patch_size == "auto":
+        # Plan on the slab geometry (z capped at the slab height); the same
+        # patch is used for every slab, so the global stride grid, and with
+        # it seam exactness, is preserved.
+        patch_size, batch_size = plan_tiling(
+            (min(Z, int(slab_z)), Y, X), overlap
+        )
+    halo = patch_size
+    slab_z = max(int(slab_z), patch_size)
+    if max_block_voxels is not None:
+        cores = plan_stream_cores(
+            shape, patch_size, overlap, int(max_block_voxels)
+        )
+        cores = (min(cores[0], slab_z), cores[1], cores[2])
+    else:
+        cores = (slab_z, Y, X)
+    plan = _tile_plan(shape, cores, halo, patch_size - overlap)
+
+    out_arr = None
+    out_store = None
+    if output_path is None:
+        out_arr = np.empty(shape, np.uint16)
+    else:
+        import tensorstore as ts
+
+        spec = {
+            "driver": "zarr3",
+            "kvstore": img_io._kvstore(output_path),
+            "metadata": {
+                "shape": [1, 1, *shape],
+                "chunk_grid": {
+                    "name": "regular",
+                    "configuration": {"chunk_shape": list(chunks)},
+                },
+                "data_type": "uint16",
+                "codecs": img_io._zarr3_codecs("zstd", clevel, "shuffle", 2),
+            },
+            "create": True,
+            "delete_existing": True,
+        }
+        out_store = ts.open(spec).result()
+
+    lazy = hasattr(src, "read")
+    ndim = len(src.shape)
+
+    def fetch(tile):
+        sl = tuple(slice(lo, hi) for _, _, lo, hi in tile)
+        idx = (Ellipsis,) + sl if ndim == 5 else sl
+        block = np.asarray(src[idx].read().result() if lazy else src[idx])
+        if block.ndim == 5:
+            block = block[0, 0]
+        return block.astype(np.uint16)
+
+    # Reader thread: keeps `prefetch` super-tiles in flight. It touches
+    # host memory only; an exception is handed to the caller's thread. When
+    # the caller's loop ends early (an exception in `predict`), `stop` lets
+    # the reader drop its fetched tile and leave instead of blocking on the
+    # full queue for good.
+    q = queue.Queue(maxsize=max(1, prefetch))
+    _STOP = object()
+    stop = threading.Event()
+
+    def hand_over(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def reader():
+        try:
+            for tile in plan:
+                if not hand_over((tile, fetch(tile))):
+                    return
+            hand_over(_STOP)
+        except BaseException as exc:
+            hand_over(exc)
+
+    threading.Thread(target=reader, daemon=True,
+                     name="denoise_volume-reader").start()
+
+    pending_writes = []
+    done = 0
+    try:
+        while True:
+            item = q.get()
+            if item is _STOP:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            tile, block = item
+            (z0, z1, lo, _), (y0, y1, loy, _), (x0, x1, lox, _) = tile
+            res = predict(
+                block, model, transform, patch_size=patch_size,
+                overlap=overlap, trim=trim, batch_size=batch_size,
+                device=device,
+            )
+            core = res[
+                z0 - lo:z0 - lo + (z1 - z0),
+                y0 - loy:y0 - loy + (y1 - y0),
+                x0 - lox:x0 - lox + (x1 - x0),
+            ]
+            if out_arr is not None:
+                out_arr[z0:z1, y0:y1, x0:x1] = core
+            else:
+                pending_writes.append(
+                    out_store[0, 0, z0:z1, y0:y1, x0:x1].write(core)
+                )
+            done += 1
+            if progress:
+                print(f"denoise_volume: tile {done}/{len(plan)}", flush=True)
+    finally:
+        stop.set()
+
+    for w in pending_writes:
+        w.result()
+    return out_arr if out_arr is not None else output_path

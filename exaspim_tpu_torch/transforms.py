@@ -27,7 +27,9 @@ __all__ = [
     "LinearClipTransform",
     "OffsetTransform",
     "IdentityTransform",
+    "estimate_offset",
     "build_transform",
+    "calibrate_transform",
     "with_offset",
 ]
 
@@ -190,6 +192,20 @@ class IdentityTransform(IntensityTransform):
         return _f32(y)
 
 
+def estimate_offset(sample, percentile=1.0, ignore_zeros=True):
+    """A robust background / black point in counts: a low percentile of the
+    (optionally nonzero) sample. ``ignore_zeros`` keeps zero padding outside
+    the imaged volume from dragging the estimate to 0. Host numpy, as in
+    the reference (``torch.quantile`` refuses inputs above 16.7 M
+    elements)."""
+    sample = np.asarray(sample, dtype=np.float32).reshape(-1)
+    if ignore_zeros:
+        nonzero = sample[sample > 0]
+        if nonzero.size:
+            sample = nonzero
+    return float(np.percentile(sample, percentile))
+
+
 _KINDS = {
     "asinh": AsinhTransform,
     "anscombe": AnscombeTransform,
@@ -212,6 +228,23 @@ def build_transform(cfg):
         raise ValueError(f"Unknown transform kind: {kind}")
     object.__setattr__(transform, "cfg", {**cfg, "params": dict(params)})
     return transform
+
+
+def calibrate_transform(cfg, sample):
+    """Freeze data-driven params into a transform config, once, globally.
+
+    Only the black point ``offset`` is calibrated (a low percentile of the
+    sample, when ``cfg["calibrate"]["offset"]`` is set). The input cfg is
+    not mutated; the returned cfg is what is serialized with the model and
+    reused verbatim at inference.
+    """
+    cfg = {**cfg, "params": dict(cfg.get("params", {}))}
+    calib = cfg.get("calibrate", {})
+    if calib.get("offset", False):
+        cfg["params"]["offset"] = estimate_offset(
+            sample, percentile=calib.get("offset_percentile", 1.0)
+        )
+    return cfg
 
 
 def with_offset(transform, offset):

@@ -213,3 +213,111 @@ def test_bm4d_on_the_card_is_deterministic_and_matches_the_cpu():
     # a rare coefficient at the threshold: teachers within 1 count.
     d = (a.cpu().round() - cpu.round()).abs()
     assert float(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 8, 16, 16), 32, 32), ((1, 6, 10, 12), 64, 64),
+    ((2, 5, 6, 18), 96, 160), ((1, 2, 2, 2), 32, 64),
+])
+def test_blocked_conv_kernel_matches_plain(shape, cin, cout):
+    _card()
+    from exaspim_tpu_torch.ops.blocked_conv import (
+        blocked_conv3d,
+        blocked_conv3d_plain,
+    )
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(_rand(rng, (*shape, cin))).to("cuda", torch.bfloat16)
+    k = torch.from_numpy(_rand(rng, (3, 3, 3, cin, cout), 0.05)).to(
+        "cuda", torch.bfloat16)
+    before = blocked_conv3d.launches
+    y = blocked_conv3d(x, k)
+    assert blocked_conv3d.launches == before + 1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # a full-f32 plain reference
+    try:
+        py = blocked_conv3d_plain(x, k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # One f32 sum rounded to bf16 in two orders: within two bf16 ulps.
+    err = (y.float() - py.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * py.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_blocked_conv_backward_runs_on_the_kernels():
+    _card()
+    from exaspim_tpu_torch.ops.blocked_conv import (
+        blocked_conv3d,
+        blocked_conv3d_plain,
+    )
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_rand(rng, (2, 4, 8, 12, 32))).to(
+        "cuda", torch.bfloat16)
+    k = torch.from_numpy(_rand(rng, (3, 3, 3, 32, 64), 0.05)).to(
+        "cuda", torch.bfloat16)
+    g = torch.from_numpy(_rand(rng, (2, 4, 8, 12, 64), 0.1)).to(
+        "cuda", torch.bfloat16)
+    xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+    counts = blocked_conv3d.launches, nb_conv3d.launches, nb_conv3d_dw.launches
+    blocked_conv3d(xr, kr).backward(g)
+    # Forward and dL/dx on the blocked kernel, dL/dW on the dL/dW kernel,
+    # nothing on the other conv.
+    assert (blocked_conv3d.launches, nb_conv3d.launches,
+            nb_conv3d_dw.launches) == (counts[0] + 2, counts[1],
+                                       counts[2] + 1)
+    xp, kp = x.float().requires_grad_(), k.float().requires_grad_()
+    blocked_conv3d_plain(xp, kp).backward(g.float())
+    # bf16 results of f32 sums: relative L2 within bf16's half ulp, 2^-8.
+    for got, want in ((xr.grad, xp.grad), (kr.grad, kp.grad)):
+        rel = (got.float() - want).norm() / want.norm()
+        assert rel.item() <= 2.0 ** -8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,shape,cin,cout,exc,match", [
+    (torch.float32, (1, 2, 4, 4), 32, 32, TypeError, "bf16"),
+    (torch.bfloat16, (1, 2, 4, 4), 16, 32, ValueError, "multiples of 32"),
+    (torch.bfloat16, (1, 2, 4, 4), 32, 48, ValueError, "multiples of 32"),
+    (torch.bfloat16, (1, 2, 5, 4), 32, 32, ValueError, "even"),
+])
+def test_blocked_conv_raises_on_the_card(x_dtype, shape, cin, cout, exc,
+                                         match):
+    _card()
+    from exaspim_tpu_torch.ops.blocked_conv import blocked_conv3d
+
+    x = torch.zeros((*shape, cin), device="cuda", dtype=x_dtype)
+    k = torch.zeros((3, 3, 3, cin, cout), device="cuda", dtype=x_dtype)
+    before = blocked_conv3d.launches
+    with pytest.raises(exc, match=match):
+        blocked_conv3d(x, k)
+    assert blocked_conv3d.launches == before
+
+
+@pytest.mark.gpu
+def test_pipeline_streams_on_the_card():
+    """Pointwise model on the card: streamed equals direct exactly; the
+    reader thread makes no CUDA call (the run would fail otherwise only by
+    chance, so the thread's work is checked to be numpy slices)."""
+    _card()
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.pipeline import denoise_volume
+    from exaspim_tpu_torch.transforms import build_transform
+
+    class DoublePlusOne(torch.nn.Module):
+        def forward(self, x):
+            return x * 2.0 + 0.01
+
+    t = build_transform({"kind": "linear", "params": {
+        "mn": 0.0, "mx": 1000.0, "clip": 8.0}})
+    img = np.random.default_rng(3).integers(0, 900, (40, 72, 60)).astype(
+        np.uint16)
+    kw = dict(patch_size=16, overlap=4, trim=2, batch_size=4)
+    direct = predict(img, DoublePlusOne(), t, **kw)
+    for extra in ({}, {"max_block_voxels": 20 * 60 * 60}):
+        streamed = denoise_volume(img, DoublePlusOne(), t, slab_z=16, **kw,
+                                  **extra)
+        np.testing.assert_array_equal(streamed, direct)

@@ -144,3 +144,100 @@ def test_port_imports_no_jax():
             for m in mods:
                 top = m.split(".")[0]
                 assert top not in banned, f"{path} imports {m}"
+
+
+class _Overshoot(torch.nn.Module):
+    """Pointwise, and past the input's range at bright voxels; counts map
+    to whole counts, so no output sits on a rounding tie."""
+
+    def forward(self, x):
+        return x * 2.0 - 0.05
+
+
+class _JaxOvershoot:
+    def apply(self, variables, x):
+        return x * 2.0 - 0.05
+
+
+@pytest.mark.parametrize("clip", [None, "input", (0.1, 0.45)])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_output_clip_matches_jax(clip, streamed):
+    """All three forms of ``output_clip``, direct and streamed (where
+    ``"input"`` is taken per super-tile). The model is pointwise and the
+    transform linear, so the uint16 outputs are equal."""
+    lin = {"kind": "linear", "params": {"mn": 0.0, "mx": 1000.0, "clip": 8.0}}
+    img = np.random.default_rng(7).integers(0, 900, (40, 24, 20)).astype(
+        np.uint16)
+    kw = dict(patch_size=16, overlap=4, trim=2, batch_size=4,
+              output_clip=clip)
+    if streamed:
+        kw["max_device_voxels"] = 20 * 24 * 20
+    want = ji.predict(img, _JaxOvershoot(), {}, jax_transform(lin), **kw)
+    got = ti.predict(img, _Overshoot(), build_transform(lin), device="cpu",
+                     **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    free = ti.predict(img, _Overshoot(), build_transform(lin), device="cpu",
+                      **{**kw, "output_clip": None})
+    if clip is None:
+        np.testing.assert_array_equal(got, free)
+    else:
+        assert got.max() < free.max()
+        hi = img.max() if clip == "input" else 450
+        assert got.max() <= hi
+
+
+def test_output_clip_program_argument():
+    t = build_transform(TCFG)
+    program, starts = ti.build_tiled_program(
+        _Overshoot(), t, (16, 16, 16), 16, 4, 2, 1, output_clip=[0.2, 0.3])
+    raw = torch.full((16, 16, 16), 5000.0)
+    out = program(raw, starts)
+    want = t.inverse(torch.tensor(0.3))
+    assert out.dtype == np.uint16 and (out == want).all()
+
+
+@pytest.mark.parametrize("kind", ["asinh", "linear"])
+def test_build_volume_transform_matches_jax(kind):
+    cfg = TCFG if kind == "asinh" else {
+        "kind": "linear", "params": {"mn": 0.0, "mx": 1000.0}}
+    img = np.random.default_rng(8).poisson(150.0, (12, 12, 12)).astype(
+        np.uint16)
+    for kw in (dict(offset=37.0), dict(img=img), dict(img=img, percentile=5.0)):
+        jt_ = ji.build_volume_transform(jax_transform(cfg), **kw)
+        tt_ = ti.build_volume_transform(build_transform(cfg), **kw)
+        assert tt_.cfg == jt_.cfg
+        x = img.astype(np.float32)
+        np.testing.assert_allclose(tt_.forward(x).numpy(),
+                                   np.asarray(jt_.forward(x)), rtol=1e-6,
+                                   atol=1e-7)
+    with pytest.raises(ValueError, match="offset or an img"):
+        ti.build_volume_transform(build_transform(cfg))
+
+
+def test_scan_covers_this_slice():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("exaspim_tpu_torch/ops/blocked_conv.py",
+                "exaspim_tpu_torch/ops/nb_bench.py",
+                "exaspim_tpu_torch/ops/filters.py",
+                "exaspim_tpu_torch/utils/img_io.py",
+                "exaspim_tpu_torch/utils/plots.py",
+                "exaspim_tpu_torch/pipeline.py",
+                "exaspim_tpu_torch/pipeline_bench.py",
+                "exaspim_tpu_torch/evaluate.py",
+                "exaspim_tpu_torch/evaluate_bm4dnet.py", "chip_smoke.py"):
+        assert rel in names, rel
+
+
+@pytest.mark.parametrize("path,what", [
+    ("gs://bucket/vol.zarr", "cloud storage"),
+    ("s3://bucket/vol.zarr/0", "cloud storage"),
+    ("precomputed://vol", "precomputed"),
+])
+def test_img_io_defers_remote_stores(path, what):
+    from exaspim_tpu_torch.utils import img_io
+
+    with pytest.raises(NotImplementedError, match=what):
+        img_io.read(path)
+    if path.startswith(("gs", "s3")):
+        with pytest.raises(NotImplementedError, match=what):
+            img_io.write_zarr(np.zeros((2, 2, 2), np.uint16), path)

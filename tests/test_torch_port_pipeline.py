@@ -1,0 +1,199 @@
+"""The port's streaming pipeline against its own ``predict`` and against
+``exaspim_tpu.pipeline.denoise_volume``.
+
+The model is pointwise (``x * 2 + 0.01``, as ``tests/test_pipeline.py``), so
+nothing depends on summation order: the streamed output equals the direct
+``predict`` output exactly, and the port's uint16 volume equals the JAX
+package's on the same input (the linear transform and the stitch are the
+same f32 operations in both; tolerance 0).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import exaspim_tpu.pipeline as jp
+import exaspim_tpu_torch.pipeline as tp
+from exaspim_tpu.transforms import build_transform as jax_transform
+from exaspim_tpu.utils import img_io as jio
+from exaspim_tpu_torch.inference import predict
+from exaspim_tpu_torch.transforms import build_transform
+from exaspim_tpu_torch.utils import img_io as tio
+
+TCFG = {"kind": "linear", "params": {"mn": 0.0, "mx": 1000.0, "clip": 8.0}}
+
+
+class JaxDoublePlusOne:
+    def apply(self, variables, x):
+        return x * 2.0 + 0.01
+
+
+class DoublePlusOne(torch.nn.Module):
+    def forward(self, x):
+        return x * 2.0 + 0.01
+
+
+def _img(seed, shape):
+    return np.random.default_rng(seed).integers(0, 900, shape).astype(
+        np.uint16)
+
+
+def _jax_streamed(img, **kw):
+    return jp.denoise_volume(img, JaxDoublePlusOne(), {},
+                             jax_transform(TCFG), **kw)
+
+
+CASES = {
+    "z_slabs": dict(seed=0, shape=(80, 24, 20), kw=dict(
+        slab_z=32, patch_size=16, overlap=4, trim=2, batch_size=4)),
+    "yx_supertiles": dict(seed=3, shape=(20, 72, 60), kw=dict(
+        slab_z=16, patch_size=16, overlap=4, trim=2, batch_size=4,
+        max_block_voxels=20 * 60 * 60)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_streamed_equals_direct_and_jax(case):
+    c = CASES[case]
+    img = _img(c["seed"], c["shape"])
+    t = build_transform(TCFG)
+    pk = {k: v for k, v in c["kw"].items()
+          if k not in ("slab_z", "max_block_voxels")}
+    direct = predict(img, DoublePlusOne(), t, device="cpu", **pk)
+    streamed = tp.denoise_volume(img, DoublePlusOne(), t, device="cpu",
+                                 **c["kw"])
+    assert streamed.dtype == np.uint16 and streamed.shape == img.shape
+    np.testing.assert_array_equal(streamed, direct)
+    np.testing.assert_array_equal(streamed, _jax_streamed(img, **c["kw"]))
+
+
+@pytest.mark.parametrize("seed,shape,extra", [
+    (1, (48, 20, 18), {}),
+    (4, (20, 48, 40), {"max_block_voxels": 20 * 44 * 40}),
+])
+def test_streamed_zarr_to_zarr(tmp_path, seed, shape, extra):
+    """Zarr→Zarr (z slabs, then y/x super-tiles): per-tile writes
+    reassemble; the JAX package reads the port's output store and the port
+    reads the JAX package's."""
+    img = _img(seed, shape)
+    t = build_transform(TCFG)
+    in_path = os.path.join(tmp_path, "in.zarr")
+    out_path = os.path.join(tmp_path, "out.zarr")
+    jax_out = os.path.join(tmp_path, "out_jax.zarr")
+    tio.write_zarr(img, in_path, chunks=(1, 1, 16, 16, 16))
+    kw = dict(slab_z=16, patch_size=16, overlap=4, trim=2, batch_size=4,
+              chunks=(1, 1, 16, 16, 16), **extra)
+    result = tp.denoise_volume(in_path, DoublePlusOne(), t,
+                               output_path=out_path, device="cpu", **kw)
+    assert result == out_path
+    direct = predict(img, DoublePlusOne(), t, patch_size=16, overlap=4,
+                     trim=2, batch_size=4, device="cpu")
+    back = np.asarray(tio.read(out_path)[...].read().result())[0, 0]
+    np.testing.assert_array_equal(back, direct)
+    np.testing.assert_array_equal(np.asarray(jio.read(out_path))[0, 0],
+                                  direct)
+    # The JAX pipeline on the store the port wrote, read back by the port.
+    jp.denoise_volume(in_path, JaxDoublePlusOne(), {}, jax_transform(TCFG),
+                      output_path=jax_out, **kw)
+    np.testing.assert_array_equal(
+        np.asarray(tio.read(jax_out)[...].read().result())[0, 0], direct)
+
+
+def test_streamed_auto_patch_matches_explicit():
+    """patch_size='auto' plans on the slab geometry: (48, 40, 40) fits no
+    64+ candidate, so the planner falls back to patch 32, batch 1."""
+    img = _img(5, (80, 40, 40))
+    t = build_transform(TCFG)
+    auto = tp.denoise_volume(img, DoublePlusOne(), t, slab_z=48,
+                             patch_size="auto", overlap=4, trim=2,
+                             device="cpu")
+    explicit = tp.denoise_volume(img, DoublePlusOne(), t, slab_z=48,
+                                 patch_size=32, overlap=4, trim=2,
+                                 batch_size=1, device="cpu")
+    np.testing.assert_array_equal(auto, explicit)
+    np.testing.assert_array_equal(auto, _jax_streamed(
+        img, slab_z=48, patch_size="auto", overlap=4, trim=2))
+
+
+@pytest.mark.parametrize("shape,cores,halo,stride", [
+    ((80, 24, 20), (32, 24, 20), 16, 12),
+    ((20, 72, 60), (16, 28, 40), 16, 12),
+    ((512, 512, 512), (256, 512, 512), 96, 84),
+])
+def test_tile_plan_equals_jax(shape, cores, halo, stride):
+    plan = tp._tile_plan(shape, cores, halo, stride)
+    assert plan == jp._tile_plan(shape, cores, halo, stride)
+    for tile in plan:
+        for (d0, d1, lo, hi), dim in zip(tile, shape):
+            assert lo % stride == 0 and 0 <= lo <= d0 < d1 <= hi <= dim
+
+
+@pytest.mark.parametrize("writer,reader", [("torch", "jax"),
+                                           ("jax", "torch")])
+def test_stores_cross_between_the_packages(tmp_path, writer, reader):
+    img = _img(6, (20, 24, 28))
+    path = os.path.join(tmp_path, "v.zarr")
+    (tio if writer == "torch" else jio).write_zarr(
+        img, path, chunks=(1, 1, 16, 16, 16))
+    arr = (tio if reader == "torch" else jio).read(path)
+    assert tuple(arr.shape) == (1, 1, 20, 24, 28)
+    np.testing.assert_array_equal(np.asarray(arr[...].read().result())[0, 0],
+                                  img)
+
+
+def test_reader_exception_reaches_the_caller():
+    class Broken:
+        shape = (40, 20, 20)
+        ndim = 3
+
+        def __getitem__(self, idx):
+            raise OSError("chunk fetch failed")
+
+    with pytest.raises(OSError, match="chunk fetch failed"):
+        tp.denoise_volume(Broken(), DoublePlusOne(), build_transform(TCFG),
+                          slab_z=16, patch_size=16, overlap=4, trim=2,
+                          batch_size=4, device="cpu")
+
+
+def test_reader_thread_ends_when_the_model_raises():
+    """Many slabs and ``prefetch=1``: when ``predict`` raises on the first
+    one the reader sits on a full queue, and must leave, not block."""
+    import threading
+    import time
+
+    class Raises(torch.nn.Module):
+        def forward(self, x):
+            raise ValueError("model failed")
+
+    before = set(threading.enumerate())
+    with pytest.raises(ValueError, match="model failed"):
+        tp.denoise_volume(_img(9, (96, 20, 20)), Raises(),
+                          build_transform(TCFG), slab_z=16, patch_size=16,
+                          overlap=4, trim=2, batch_size=4, prefetch=1,
+                          device="cpu")
+    deadline = time.time() + 5.0
+    while time.time() < deadline and set(threading.enumerate()) - before:
+        time.sleep(0.05)
+    assert not set(threading.enumerate()) - before
+
+
+def test_mesh_is_a_later_slice():
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tp.denoise_volume(_img(7, (20, 20, 20)), DoublePlusOne(),
+                          build_transform(TCFG), patch_size=16, overlap=4,
+                          trim=2, mesh=object(), device="cpu")
+
+
+def test_defaults_follow_the_port_conventions():
+    import inspect
+
+    sig = inspect.signature(tp.denoise_volume).parameters
+    assert list(sig)[:3] == ["img", "model", "transform"]
+    assert sig["device"].default == "cuda"
+    jsig = inspect.signature(jp.denoise_volume).parameters
+    for name in ("slab_z", "patch_size", "overlap", "trim", "batch_size",
+                 "clevel", "chunks", "prefetch", "progress",
+                 "max_block_voxels", "output_path"):
+        assert sig[name].default == jsig[name].default, name

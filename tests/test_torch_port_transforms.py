@@ -72,3 +72,43 @@ def test_with_offset_matches_jax():
         assert t.cfg == j.cfg
         x = _inputs()[0]
         _close(t.forward(x).numpy(), np.asarray(j.forward(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("percentile,ignore_zeros", [(1.0, True), (5.0, True),
+                                                     (1.0, False)])
+def test_estimate_offset_matches_jax(percentile, ignore_zeros):
+    """Host numpy in both packages: equal."""
+    from exaspim_tpu.transforms import estimate_offset as jax_estimate
+    from exaspim_tpu_torch.transforms import estimate_offset
+
+    rng = np.random.default_rng(11)
+    sample = rng.poisson(120.0, (24, 20, 20)).astype(np.uint16)
+    sample[:4] = 0  # zero padding outside the imaged volume
+    got = estimate_offset(sample, percentile, ignore_zeros)
+    assert got == jax_estimate(sample, percentile, ignore_zeros)
+    assert isinstance(got, float)
+    assert estimate_offset(np.zeros(8)) == 0.0
+
+
+@pytest.mark.parametrize("calibrate", [
+    {"offset": True}, {"offset": True, "offset_percentile": 3.0}, {}, None,
+])
+def test_calibrate_transform_matches_jax(calibrate):
+    from exaspim_tpu.transforms import calibrate_transform as jax_calibrate
+    from exaspim_tpu_torch.transforms import (
+        build_transform,
+        calibrate_transform,
+    )
+
+    sample = np.random.default_rng(12).poisson(90.0, 4096).astype(np.float32)
+    cfg = {"kind": "asinh", "params": {"offset": 0.0, "scale": 50.0}}
+    if calibrate is not None:
+        cfg["calibrate"] = calibrate
+    frozen = {"kind": "asinh", "params": {"offset": 0.0, "scale": 50.0}}
+    got = calibrate_transform(cfg, sample)
+    assert got == jax_calibrate(cfg, sample)
+    assert cfg["params"] == frozen["params"]  # the input is not mutated
+    if calibrate and calibrate.get("offset"):
+        assert got["params"]["offset"] > 0
+    params = {k: v for k, v in got.items() if k != "calibrate"}
+    assert build_transform(params).offset == got["params"]["offset"]
