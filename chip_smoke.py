@@ -9,16 +9,24 @@ exits non-zero without a card. Phases, each announced by a ``# phase:``
 line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile all kernels, print the conv's seconds and ptxas report;
+2. build: compile all kernels, print the conv's seconds and ptxas report
+   (no register spills allowed);
 3. kernel vs plain: the Hopper conv against its plain PyTorch version on
-   the card, at the inference path's conv shapes (batch 2), with and
-   without the GroupNorm-statistics epilogue, plus its time beside the
-   plain version's, cuDNN's (a yardstick only) and the card's bound;
+   the card, at every conv shape of phase 4's path at its own batch (9)
+   and at six of its shapes at batch 2, the fixed comparison set
+   (``nb_bench.INFERENCE_SHAPES``), with and without the
+   GroupNorm-statistics epilogue: two launches bit-equal, two elements
+   launched alone as a smaller batch bit-equal to their slots, a planted
+   descriptor fault caught, plus its time beside the plain version's,
+   cuDNN's (a yardstick only) and the card's bound, and the wrapper's host
+   time per launch; then edge shapes (extents no multiple of the tile,
+   narrow and odd widths, Cout = 8), checked, not timed;
 4. main path: the shipped checkpoint denoises the 256³ bench block
    (``neurite_phantom(n_tubes=24, seed=0)``, ``noisy_observation(seed=1)``)
-   through ``predict(..., patch_size="auto")``; the launch count shows
-   every 3³ conv went through the kernel; then timed runs, a profile and
-   a small-input check against the f32 CPU path;
+   through ``predict(..., patch_size="auto")``; the launch counts (conv and
+   its statistics' reduce) show every 3³ conv went through the kernel, and
+   the tile plans it ran are exactly those phase 3 checked; then timed
+   runs, a profile and a small-input check against the f32 CPU path;
 5. quality: PSNR, SSIM and the blosc-zstd chunked ratio gain against the
    clean phantom, held to the repository's quality guard;
 6. build (training kernels): the dL/dW and byte-histogram ptxas reports;
@@ -70,10 +78,9 @@ line:
 16. pipeline: a 512³ uint16 volume (phase 4's noisy block mirror-tiled)
     through ``denoise_volume`` at the defaults (two z slabs) and with
     ``max_block_voxels`` forcing y/x super-tiles, each held against one
-    direct ``predict`` of the whole volume: exactly equal with a pointwise
-    model; with the shipped checkpoint within one count on all but a share
-    of 1e-3 of voxels (two direct runs differ as much: the GroupNorm sums
-    are atomic); seconds, voxels/s, the device-only block rate, conv
+    direct ``predict`` of the whole volume: bit-equal, with a pointwise
+    model and with the shipped checkpoint, and two direct runs bit-equal;
+    seconds, voxels/s, the device-only block rate, conv and reduce
     launches, the idle share of one streamed run, peak device memory;
 17. evaluation: with an exact codec, ``SupervisedEvaluator.run`` on two
     128³ crops and ``UnsupervisedEvaluator.run`` on four 64³ voxels;
@@ -87,6 +94,7 @@ The line before the last is the kernels' JSON record; the last line is
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -164,21 +172,22 @@ BLOCKED_SHAPES = ((2, 64, 64, 64, 32, 32), (2, 32, 32, 32, 64, 64),
                   (2, 32, 32, 32, 64, 32), (2, 8, 12, 20, 32, 32),
                   (2, 6, 10, 12, 64, 64))
 BENCH_BATCH = 32
+# Conv edge shapes of phase 3, (B, (D, H, W) or edge, segments, Cout).
+CONV_EDGE_SHAPES = ((2, (10, 12, 20), (32,), 32), (2, 8, (16,), 16),
+                    (2, 8, (8, 8), 8), (2, 8, (32,), 8),
+                    (2, 6, (64, 64), 64), (2, (5, 7, 9), (3,), 16),
+                    (2, 4, (64,), 64))
 # Pipeline (phase 16): the volume, and the block bound that forces y/x
 # super-tiles (cores (96, 176, 512) at patch 96: 18 tiles).
 PIPE_N, PIPE_MAX_BLOCK = 512, 87_000_000
-# Streamed vs direct predict with the UNet. The GroupNorm statistics are
-# summed with atomicAdd, so two runs of one block differ in the last bits
-# of the sums; a bf16 activation near a rounding boundary then lands on
-# its neighbour (2^-8 of its value), and the difference travels on through
-# the layers. Two direct runs of the same volume differ the same way: on
-# an NVIDIA H100 80GB HBM3 (700 W) by up to 14 counts on 1.3 % of voxels,
-# more than one count on 8.6e-5 of them (this phase prints the reading of
-# two direct runs beside every streamed run's). So
-# the streamed volume is held within 1 count of the direct one on all but
-# a share of 1e-3 of voxels, every voxel within bf16 reach (the relative
-# limit of phase 4's CPU check), and exactly only with a pointwise model.
-PIPE_MAX_COUNTS, PIPE_MAX_SHARE, PIPE_MAX_REL = 1, 1e-3, 0.05
+# Streamed vs direct predict with the UNet: bit-equal. The streamed volume
+# puts each patch in other batches and slots (a slab's last batch is short),
+# and the conv kernel picks its tile plan by the batch size. Its output
+# and GroupNorm sums do not depend on either: every plan accumulates the
+# taps in one order, and the sums are taken per unit (a z plane of an 8 x 8
+# tile) in one fixed tree, then over the units in order, with no atomics
+# (csrc/nb_conv3d.cu). On an H100 the ops around the kernel (the 1x1 head,
+# resize, GroupNorm's finalize) gave the same bits in every batch as well.
 EVAL_VOXELS = ((0, 0, 0), (64, 96, 128), (192, 64, 32), (128, 192, 192))
 
 _T0 = time.time()
@@ -211,7 +220,8 @@ def cuda_ms(fn, reps):
 
 def shape_name(n, segs, cout):
     cin = "(" + "|".join(map(str, segs)) + ")" if len(segs) > 1 else segs[0]
-    return f"{n}^3 {cin}->{cout}"
+    ext = f"{n}^3" if isinstance(n, int) else "x".join(map(str, n))
+    return f"{ext} {cin}->{cout}"
 
 
 def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -220,33 +230,65 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def check_kernel(b, n, segs, cout, seed, stats=True):
-    """Conv kernel vs plain version at one shape; the time is that of the
-    mode the path runs (``stats``: a forward with GroupNorm statistics;
-    else plain mode, as the backward's dL/dx runs it). Returns its record."""
+def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True):
+    """Conv kernel vs plain version at one shape (``n``: an edge or
+    ``(D, H, W)``): within OUT_RTOL and STATS_RTOL, two launches bit-equal,
+    the planted descriptor fault caught, and two of the elements launched
+    alone as a smaller batch bit-equal to their slots. The time is that of
+    the mode the path runs (``stats``: a forward with GroupNorm statistics;
+    else plain mode, as the backward's dL/dx runs it). Returns its
+    record."""
     import torch
     import torch.nn.functional as F
 
+    from exaspim_tpu_torch.ops import nb_conv as nc
     from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_plain
 
     name = ("" if stats else "dx ") + shape_name(n, segs, cout)
+    ext = (n,) * 3 if isinstance(n, int) else tuple(n)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cin = sum(segs)
-    xs = tuple(torch.randn((b, n, n, n, c), generator=gen, device="cuda",
+    xs = tuple(torch.randn((b, *ext, c), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for c in segs)
     k = (torch.randn((27, cin, cout), generator=gen, device="cuda")
          / np.sqrt(27 * cin)).to(torch.bfloat16)
+    plan = nc._plan(b, *ext, segs, cout)
     y, s1, s2 = nb_conv3d(xs, k, with_stats=True)
+    y2, t1, t2 = nb_conv3d(xs, k, with_stats=True)
     y_plain_mode = nb_conv3d(xs, k)
+    # Planted fault: tap 0 reads tap 1's view of the A operand (a debug
+    # argument of the C entry point; the wrappers never pass it).
+    y_fault = nc._launch(xs, k, False, debug=1)
     py, p1, p2 = nb_conv3d_plain(xs, k, with_stats=True)
     torch.cuda.synchronize()
     yf, pf = y.float(), py.float()
     err = float((yf - pf).abs().max())
     scale = float(pf.abs().max())
+    fault_err = float((y_fault.float() - pf).abs().max())
     if not torch.isfinite(yf).all() or err > OUT_RTOL * scale:
         fail(f"{name}: kernel output off by {err} (max |plain| {scale})")
+    if not (torch.equal(y, y2) and torch.equal(s1, t1)
+            and torch.equal(s2, t2)):
+        fail(f"{name}: two launches on the same inputs differ")
     if not torch.equal(y_plain_mode, y):
         fail(f"{name}: the plain mode differs from the stats mode")
+    if not fault_err > OUT_RTOL * scale:
+        fail(f"{name}: the planted descriptor fault was not caught "
+             f"(|d| {fault_err})")
+    del y2, t1, t2, y_fault
+    # Batch-slot independence: elements lo..hi-1 alone, as a smaller batch
+    # (another plan at the deep levels, other slots), give the same bits.
+    lo, hi = (1, 3) if b > 2 else (b - 1, b)
+    slot_plan = None
+    if b > 1:
+        sub = tuple(x[lo:hi].clone() for x in xs)
+        slot_plan = nc._plan(hi - lo, *ext, segs, cout)
+        ys, u1, u2 = nb_conv3d(sub, k, with_stats=True)
+        if not (torch.equal(ys, y[lo:hi]) and torch.equal(u1, s1[lo:hi])
+                and torch.equal(u2, s2[lo:hi])):
+            fail(f"{name}: elements {lo}..{hi - 1} differ between batch {b} "
+                 f"({dict(plan)}) and batch {hi - lo} ({dict(slot_plan)})")
+        del sub, ys, u1, u2
     # The statistics are the f32 sums of the kernel's own rounded output
     # (held to the plain version above). Against the plain version's
     # statistics they also carry the elements that rounded to the other
@@ -261,9 +303,30 @@ def check_kernel(b, n, segs, cout, seed, stats=True):
     if e1 > STATS_RTOL or e2 > STATS_RTOL:
         fail(f"{name}: stats off (Σy {e1:.2e} of Σ|y|, Σy² {e2:.2e})")
 
+    rec = {"shape": name, "batch": b, "key": (b, *ext, tuple(segs), cout),
+           "plan": dict(plan), "max_abs_err": err,
+           "rel_err": err / scale, "stats_err_s1": e1, "stats_err_s2": e2,
+           "stats_vs_plain": vs_plain, "bit_equal_repeat": True,
+           "fault_rel_err": fault_err / scale,
+           "slot_check": None if slot_plan is None else [
+               lo, hi, dict(slot_plan)]}
+    slot = ("" if slot_plan is None else
+            f", elements {lo}..{hi - 1} equal alone (B={hi - lo} "
+            f"{slot_plan['mode']} wg={slot_plan['wg']} bn={slot_plan['bn']})")
+    if not time_it:
+        print(f"{name} B={b} {plan['mode']} wg={plan['wg']} bn={plan['bn']}:"
+              f" rel {err / scale:.2e} <= {OUT_RTOL:.2e}, stats "
+              f"{e1:.1e}/{e2:.1e}, repeat bit-equal, planted fault "
+              f"{fault_err / scale:.2e} caught{slot}", flush=True)
+        return rec
     # Times: the kernel, the plain version, and one cuDNN call on the
-    # pre-concatenated input.
-    reps = 20 if n <= 48 else 10
+    # pre-concatenated input; and the wrapper's host time per launch.
+    reps = 50 if max(ext) <= 16 else 20 if max(ext) <= 48 else 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        nb_conv3d(xs, k, with_stats=stats)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
     kernel_ms = cuda_ms(lambda: nb_conv3d(xs, k, with_stats=stats), reps)
     plain_ms = cuda_ms(lambda: nb_conv3d_plain(xs, k, with_stats=stats), 3)
     xcat = torch.cat(xs, -1).permute(0, 4, 1, 2, 3)  # channels_last_3d view
@@ -271,24 +334,27 @@ def check_kernel(b, n, segs, cout, seed, stats=True):
         memory_format=torch.channels_last_3d)
     library_ms = cuda_ms(lambda: F.conv3d(xcat, wlib, padding=1), reps)
 
-    vox = b * n ** 3
+    vox = b * int(np.prod(ext))
     flops = 2.0 * 27 * cin * cout * vox
     nbytes = 2 * vox * (cin + cout) + 2 * 27 * cin * cout
     nbytes += 8 * b * cout if stats else 0
-    rec = {
-        "shape": name, "batch": b, "max_abs_err": err,
-        "rel_err": err / scale, "stats_err_s1": e1, "stats_err_s2": e2,
-        "stats_vs_plain": vs_plain,
+    rec.update({
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "host_us_per_launch": host_us,
         **bound(flops, nbytes), "tflops": flops / kernel_ms / 1e9,
-    }
+    })
+    rec["bound_share"] = rec["bound_ms"] / kernel_ms
     print(
-        f"{name} B={b}: max|d|={err:.3e} (rel {err / scale:.2e} <= "
+        f"{name} B={b} {plan['mode']} wg={plan['wg']} bn={plan['bn']}: "
+        f"max|d|={err:.3e} (rel {err / scale:.2e} <= "
         f"{OUT_RTOL:.2e}) stats {e1:.1e}/{e2:.1e} <= {STATS_RTOL:.0e} "
-        f"(vs plain's {vs_plain[0]:.1e}/{vs_plain[1]:.1e})  "
+        f"(vs plain's {vs_plain[0]:.1e}/{vs_plain[1]:.1e}), repeat "
+        f"bit-equal, planted fault {fault_err / scale:.2e} caught{slot}  "
         f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} "
-        f"({rec['bound_by']}) {rec['tflops']:.1f} TFLOP/s",
+        f"({rec['bound_by']}) {rec['tflops']:.1f} TFLOP/s "
+        f"({100 * rec['bound_share']:.1f} % of the bound); host "
+        f"{host_us:.1f} us per launch",
         flush=True,
     )
     return rec
@@ -737,7 +803,8 @@ def training_path(train_dir, val_dir):
     from exaspim_tpu_torch.compression.proxy import byte_histogram
     from exaspim_tpu_torch.data.cache import CachedPatchDataset
     from exaspim_tpu_torch.inference import predict
-    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.ops.nb_bench import unet_conv_shapes
+    from exaspim_tpu_torch.ops.nb_conv import _plan, nb_conv3d, nb_conv3d_dw
     from exaspim_tpu_torch.train.checkpoint import (
         find_best_checkpoint,
         restore_pipeline,
@@ -756,17 +823,25 @@ def training_path(train_dir, val_dir):
     epochs = TRAIN_STEPS // (N_TRAIN // 32)
     torch.cuda.reset_peak_memory_stats()
     nb_conv3d.launches = nb_conv3d_dw.launches = byte_histogram.launches = 0
+    nb_conv3d.reduce_launches = 0
     t0 = time.perf_counter()
     trainer = train([train_dir], [val_dir], os.path.join(WORK, "run"),
                     epochs=epochs, val_every=VAL_EVERY, log_every=1, **cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"nb_conv3d": nb_conv3d.launches,
+                "nb_conv3d_reduce": nb_conv3d.reduce_launches,
                 "nb_conv3d_dw": nb_conv3d_dw.launches,
                 "byte_histogram": byte_histogram.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_val = 2 * (-(-N_VAL // 32))  # validations x batches
+    # The statistics' reduce runs for every forward conv with more than one
+    # unit (the 4^3 bottleneck convs have one: 64 FLAT voxels).
+    reduced = sum(1 for kind, n, segs, cout in unet_conv_shapes(PATCH)
+                  if kind == "fwd"
+                  and _plan(32, n, n, n, segs, cout)["ws_rows"] > 1)
     want = {"nb_conv3d": 35 * TRAIN_STEPS + 18 * n_val,
+            "nb_conv3d_reduce": reduced * (TRAIN_STEPS + n_val),
             "nb_conv3d_dw": 18 * TRAIN_STEPS, "byte_histogram": n_val}
     print(f"train(): {TRAIN_STEPS} steps + 2 validations in {wall:.2f} s; "
           f"launches {launches} (expected {want}); peak device memory "
@@ -798,7 +873,8 @@ def training_path(train_dir, val_dir):
     phase("training path: profile of two steps")
     run = cached_step(train_dir, trainer.state, trainer.transform)
     run()
-    prof = profile_once(lambda: [run() for _ in range(2)], key="nb_conv3d")
+    prof = profile_once(lambda: [run() for _ in range(2)], key=(
+        "nb_conv3d_kernel", "nb_stats_reduce", "nb_conv3d_dw"))
     del run
 
     phase("training path: best checkpoint -> restore_pipeline -> predict")
@@ -1337,13 +1413,10 @@ def conv_bench():
 
 
 def count_diff(a, b):
-    """Of ``a`` against the reference ``b``, in counts: the largest |a − b|,
-    the share of voxels that differ, the share more than
-    ``PIPE_MAX_COUNTS`` apart, and the largest |a − b| / (b + 100)."""
+    """Of ``a`` against the reference ``b``, in counts: the largest |a − b|
+    and the share of voxels that differ."""
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-    return (int(d.max()), float((d > 0).mean()),
-            float((d > PIPE_MAX_COUNTS).mean()),
-            float((d / (b.astype(np.float32) + 100.0)).max()))
+    return int(d.max()), float((d > 0).mean())
 
 
 def pipeline_path(img, ckpt):
@@ -1423,54 +1496,55 @@ def pipeline_path(img, ckpt):
     rec["direct_s"] = time.perf_counter() - t0
     again = predict(vol, model, transform, **kw)
     rec["direct_vs_direct"] = count_diff(again, direct)
+    if not np.array_equal(again, direct):
+        fail(f"two direct predicts of the same volume differ: "
+             f"{rec['direct_vs_direct']}")
     del again
     rec["peak_mem_direct_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"direct predict {rec['direct_s']:.3f} s "
           f"({vol.size / rec['direct_s']:.1f} voxels/s), peak device memory "
-          f"{rec['peak_mem_direct_gb']} GiB; a second direct run differs by "
-          f"max {rec['direct_vs_direct'][0]} count(s), on share "
-          f"{rec['direct_vs_direct'][1]:.3e} of voxels, by more than "
-          f"{PIPE_MAX_COUNTS} on share {rec['direct_vs_direct'][2]:.3e}, "
-          f"max |d|/(ref+100) {rec['direct_vs_direct'][3]:.4f}", flush=True)
+          f"{rec['peak_mem_direct_gb']} GiB; a second direct run is "
+          "bit-equal", flush=True)
     order = (("default_slabs", "cold"), ("default_slabs", "warm"),
              ("forced_3axis", "once"))
     for name, tag in order:
         torch.cuda.reset_peak_memory_stats()
-        nb_conv3d.launches = 0
+        nb_conv3d.launches = nb_conv3d.reduce_launches = 0
         sync()
         t0 = time.perf_counter()
         out = denoise_volume(vol, model, transform, overlap=OVERLAP,
                              trim=TRIM, **runs[name])
         sync()
         wall = time.perf_counter() - t0
-        mx, share, share2, rel = count_diff(out, direct)
+        mx, share = count_diff(out, direct)
         r = {"wall_s": wall, "voxels_per_s": vol.size / wall,
-             "launches": nb_conv3d.launches, "max_counts": mx,
-             "share_differ": share, "share_above_1": share2, "max_rel": rel,
+             "launches": nb_conv3d.launches,
+             "reduce_launches": nb_conv3d.reduce_launches, "max_counts": mx,
+             "share_differ": share,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
         rec[f"{name}_{tag}"] = r
         print(f"{name} ({tag}): {wall:.3f} s, {vol.size / wall:.1f} voxels/s "
               f"(host clock, reader thread and copies included); nb_conv3d "
-              f"launches {r['launches']} (expected {want[name]}); vs direct: "
-              f"share more than "
-              f"{PIPE_MAX_COUNTS} count apart {share2:.3e} (limit "
-              f"{PIPE_MAX_SHARE}), max |d|/(ref+100) {rel:.4f} (limit "
-              f"{PIPE_MAX_REL}), max {mx} count(s), share differing "
-              f"{share:.3e}; peak device memory {r['peak_mem_gb']} GiB",
+              f"launches {r['launches']}, reduce {r['reduce_launches']} "
+              f"(expected {want[name]} each); vs direct: max {mx} "
+              f"count(s), share differing {share:.3e} (both must be 0); "
+              f"peak device memory {r['peak_mem_gb']} GiB",
               flush=True)
         if out.shape != vol.shape or out.dtype != np.uint16:
             fail(f"pipeline {name}: output {out.shape} {out.dtype}")
-        if r["launches"] != want[name]:
-            fail(f"pipeline {name}: {r['launches']} conv launches, expected "
-                 f"{want[name]}")
-        if share2 > PIPE_MAX_SHARE or rel > PIPE_MAX_REL:
-            fail(f"pipeline {name}: streamed strays from the direct predict")
+        if r["launches"] != want[name] or r["reduce_launches"] != want[name]:
+            fail(f"pipeline {name}: {r['launches']} conv launches and "
+                 f"{r['reduce_launches']} reduce launches, expected "
+                 f"{want[name]} each")
+        if not np.array_equal(out, direct):
+            fail(f"pipeline {name}: the streamed volume differs from the "
+                 f"direct predict (max {mx} counts on a share {share:.3e})")
     del out, direct
 
     phase("pipeline: profile of one default streamed run")
     rec["profile"] = profile_once(lambda: denoise_volume(
         vol, model, transform, overlap=OVERLAP, trim=TRIM,
-        **runs["default_slabs"]), key="nb_conv3d")
+        **runs["default_slabs"]))
 
     # The device-only rate of the default plan's first block: the same
     # tiled program on a device-resident block, synchronized.
@@ -1603,14 +1677,17 @@ def print_ptxas(build, name):
             print("  " + line.strip())
 
 
-def profile_once(run, key="nb_conv3d_kernel", warm=False):
+def profile_once(run, key=("nb_conv3d_kernel", "nb_stats_reduce"),
+                 warm=False):
     """Device time by kernel over one run of ``run`` (torch.profiler);
-    ``key`` names the kernels whose share and launch count are reported.
-    ``warm`` first makes one discarded run inside the profiler's warm-up
-    step, so that a short run's first launches are traced too."""
+    ``key`` (a name fragment, or a tuple of them) names the kernels whose
+    time and launch count are reported, each fragment on its own and
+    summed. ``warm`` first makes one discarded run inside the profiler's
+    warm-up step, so that a short run's first launches are traced too."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    keys = (key,) if isinstance(key, str) else tuple(key)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)
@@ -1640,17 +1717,21 @@ def profile_once(run, key="nb_conv3d_kernel", warm=False):
     if not rows:
         print("profile: no device time recorded (not measured)")
         return None
-    conv_s = sum(r[0] for r in rows if key in r[1]) / 1e6
-    key_launches = sum(r[2] for r in rows if key in r[1])
+    by_key = {k: [sum(r[0] for r in rows if k in r[1]) / 1e6,
+                  sum(r[2] for r in rows if k in r[1])] for k in keys}
+    conv_s = sum(v[0] for v in by_key.values())
+    key_launches = sum(v[1] for v in by_key.values())
     print(f"profile: wall {wall:.4f} s, device busy {busy_s:.4f} s "
           f"(idle share {max(0.0, 1 - busy_s / wall):.3f}), of which "
-          f"{key} kernels {conv_s:.4f} s in {key_launches} launches")
-    for dev_us, key, count in rows[:10]:
-        print(f"  {dev_us / 1e3:10.3f} ms  x{count:<5d} {key[:90]}")
+          + " + ".join(f"{k} kernels {v[0]:.4f} s in {v[1]} launches"
+                       for k, v in by_key.items())
+          + (f" = {conv_s:.4f} s" if len(keys) > 1 else ""))
+    for dev_us, name, count in rows[:10]:
+        print(f"  {dev_us / 1e3:10.3f} ms  x{count:<5d} {name[:90]}")
     return {"wall_s": wall, "device_busy_s": busy_s, "conv_s": conv_s,
-            "key_launches": key_launches,
-            "top": [[key, dev_us / 1e3, count]
-                    for dev_us, key, count in rows[:15]]}
+            "key_launches": key_launches, "by_key": by_key,
+            "top": [[name, dev_us / 1e3, count]
+                    for dev_us, name, count in rows[:15]]}
 
 
 def main():
@@ -1697,29 +1778,65 @@ def main():
     print(f"build_s={record['build_s']:.2f} (all seven sources, in parallel; "
           f"nb_conv3d {build_s['nb_conv3d']:.2f})", flush=True)
     print_ptxas(_build, "nb_conv3d")
+    spills = [ln for ln in _build.build_log("nb_conv3d").splitlines()
+              if re.search(r"[1-9][0-9]* bytes spill", ln)]
+    if spills:
+        fail(f"nb_conv3d spills registers: {spills}")
 
     phase("kernel vs plain")
+    from exaspim_tpu_torch.ops import nb_conv as nc
+    from exaspim_tpu_torch.ops.nb_bench import (
+        INFERENCE_SHAPES,
+        unet_conv_shapes,
+    )
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    shapes = [
-        (2, 96, (1,), 32),
-        (2, 96, (32,), 32),
-        (2, 96, (32, 32), 32),
-        (2, 48, (64, 64), 64),
-        (2, 12, (256, 256), 256),
-        (2, 6, (256,), 256),
-    ]
+    # The main path's own convs: the 18 forwards of one batch of patches of
+    # the 256^3 block (phase 4), at its batch; phase 4 asserts that the
+    # block ran exactly these plans. Then six of its shapes at batch 2
+    # (nb_bench.INFERENCE_SHAPES), a fixed set to compare versions on.
+    patch, batch = plan_tiling((BLOCK,) * 3, OVERLAP)
+    n_batches = -(-27 // batch)
+    path_shapes = Counter((batch, n, segs, cout) for kind, n, segs, cout
+                          in unet_conv_shapes(patch) if kind == "fwd")
     with torch.no_grad():
-        checks = [check_kernel(*s, seed=i) for i, s in enumerate(shapes)]
+        path_checks = [check_kernel(*s, seed=200 + i)
+                       for i, s in enumerate(sorted(path_shapes))]
+        path_counts = [n_batches * path_shapes[s]
+                       for s in sorted(path_shapes)]
+        checks = [check_kernel(*s, seed=i)
+                  for i, s in enumerate(INFERENCE_SHAPES)]
+        # Edge shapes, checked and not timed: extents that are no multiple
+        # of the tile, the narrow widths, Cout = 8, two segments at 6^3, an
+        # odd width (element loads), a deep-level volume (FLAT tiles).
+        record["kernel_edge_checks"] = [
+            check_kernel(*s, seed=100 + i, time_it=False)
+            for i, s in enumerate(CONV_EDGE_SHAPES)]
+    record["kernel_path_checks"] = path_checks
     record["kernel_checks"] = checks
+    for label, recs, counts in (
+            (f"inference path per 256^3 block ({sum(path_counts)} launches, "
+             f"B={batch})", path_checks, path_counts),
+            (f"six inference shapes (B={INFERENCE_SHAPES[0][0]})",
+             checks, [1] * len(checks))):
+        t = per_step(recs, counts)
+        print(f"{label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    modes = {r["plan"]["mode"]
+             for r in path_checks + checks + record["kernel_edge_checks"]}
+    if modes != {"halo", "res", "flat", "panel"}:
+        fail(f"phase 3 reached the tile modes {modes}, not all four")
 
     phase("main path: restore + phantom")
     model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
                                         device="cuda")
     clean, _ = neurite_phantom((BLOCK,) * 3, n_tubes=24, seed=0)
     img = noisy_observation(clean, seed=1)
-    patch, batch = plan_tiling(img.shape, OVERLAP)
-    n_batches = -(-27 // batch)
+    if (patch, batch) != plan_tiling(img.shape, OVERLAP):
+        fail(f"the block's tiling {plan_tiling(img.shape, OVERLAP)} is not "
+             f"the ({patch}, {batch}) phase 3 checked")
     print(f"patch={patch} batch={batch} batches={n_batches}", flush=True)
 
     def run():
@@ -1728,16 +1845,30 @@ def main():
 
     phase("main path: counted run")
     torch.cuda.reset_peak_memory_stats()
-    nb_conv3d.launches = 0
+    nb_conv3d.launches = nb_conv3d.reduce_launches = 0
+    plans_run, plan_fn = {}, nc._plan
+
+    def spy_plan(*args):
+        plans_run[args] = plan = plan_fn(*args)
+        return plan
+
     t0 = time.perf_counter()
-    out = run()
+    with patched(_plan=spy_plan):
+        out = run()
     first_s = time.perf_counter() - t0
     launches = nb_conv3d.launches
+    reduces = nb_conv3d.reduce_launches
     want = 18 * n_batches
-    print(f"first run {first_s:.4f} s, nb_conv3d launches {launches} "
-          f"(expected {want})", flush=True)
-    if launches != want:
-        fail(f"nb_conv3d launched {launches} times, expected {want}")
+    print(f"first run {first_s:.4f} s, nb_conv3d launches {launches}, "
+          f"reduce launches {reduces} (expected {want} each)", flush=True)
+    if launches != want or reduces != want:
+        fail(f"nb_conv3d launched {launches} times and its reduce {reduces},"
+             f" expected {want} each")
+    checked = {tuple(r["key"]): r["plan"] for r in path_checks}
+    ran = {k: dict(v) for k, v in plans_run.items()}
+    if ran != checked:
+        fail(f"the block ran the plans {ran}; phase 3 checked {checked}")
+    print(f"the block ran the {len(ran)} plans phase 3 checked", flush=True)
     if out.shape != img.shape or out.dtype != np.uint16:
         fail(f"output {out.shape} {out.dtype}")
 
@@ -1750,6 +1881,7 @@ def main():
     sec = float(np.median(times))
     record.update({
         "patch": patch, "batch": batch, "launches_per_block": launches,
+        "reduce_launches_per_block": reduces,
         "block_s": times, "seconds_per_block": sec,
         "voxels_per_s": img.size / sec,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1893,7 +2025,9 @@ def main():
     # Each record reads one path. Training: launches of the counted train()
     # run; ms and bounds summed over one training step's launches (phase 7).
     # Inference: launches of one 256³ block; ms and bounds summed over the
-    # six conv shapes of phase 3, each once. Teachers: launches of the
+    # block's 54 conv launches (phase 3's path shapes at the block's batch;
+    # a stats launch's time includes its reduce, counted apart in
+    # reduce_launches). Teachers: launches of the
     # counted precompute() run; ms and bounds summed over one patch's two
     # launches (the 64³ raw patch and its stage-1 estimate, phase 11).
     # Elementwise: one launch each on the 256³ block. Conv bench: launches of
@@ -1908,6 +2042,7 @@ def main():
         "source": "exaspim_tpu_torch/csrc/nb_conv3d.cu",
         "replaces": "exaspim_tpu/ops/nb_conv.py:358",
         "launches": runs["nb_conv3d"],
+        "reduce_launches": runs["nb_conv3d_reduce"],
         **per_step(conv_train["recs"], conv_train["counts"]),
     }, {
         "name": "nb_conv3d_dw",
@@ -1932,7 +2067,8 @@ def main():
         "source": "exaspim_tpu_torch/csrc/nb_conv3d.cu",
         "replaces": "exaspim_tpu/ops/nb_conv.py:358",
         "launches": record["launches_per_block"],
-        **per_step(checks, [1] * len(checks)),
+        "reduce_launches": record["reduce_launches_per_block"],
+        **per_step(path_checks, path_counts),
     }, {
         "name": "bm4d_match",
         "path": "teachers",

@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` file is compiled on first use into its own shared
 library with a plain C interface, for Hopper (``sm_90a``), into
 ``exaspim_tpu_torch/build/`` (listed in ``.gitignore``). The library name
-carries a hash of the source, so an edited kernel is rebuilt and a stale
-one is never loaded. Nothing here runs at import time.
+carries a hash of the source, of the local headers it includes and of the
+flags, so an edited kernel is rebuilt and a stale one is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,11 +45,33 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path, seen=None):
+    """``path`` and every header it includes with ``#include "..."``
+    (resolved beside the including file, recursively), in include order."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _paths(name):
+    """The source of ``name`` and its library path, whose name carries a
+    hash of the source, of every local header it includes and of the nvcc
+    flags."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=KERNELS):

@@ -20,6 +20,19 @@ write plain NDHWC, there is no blocked layout to convert) and the one-jit
 trip, and CUDA events time the device, not the link).
 
     python -m exaspim_tpu_torch.ops.nb_bench [--batch 32]
+
+``--path-shapes`` instead times ``nb_conv3d`` alone at the shapes of the
+port's model paths, each shape once, with the sums and the wrapper's mean
+host time per launch: the 18 forward convs of the 256³ block's path
+(``chip_smoke.py`` phase 4: patches of 96³ at batch 9, with statistics,
+times 3 batches per block), six of those shapes at a fixed batch
+(:data:`INFERENCE_SHAPES`, batch 2), and every conv of one training step
+of the default configuration (batch 32 of 64³: 18 forwards with
+statistics, 17 dL/dx in plain mode, :func:`unet_conv_shapes`). It uses
+only the public ``nb_conv3d``, so the same file times an older checkout
+of the package put first on ``PYTHONPATH``:
+
+    PYTHONPATH=OLD_ROOT python exaspim_tpu_torch/ops/nb_bench.py --path-shapes
 """
 
 from __future__ import annotations
@@ -35,12 +48,107 @@ import torch.nn.functional as F
 from exaspim_tpu_torch.ops.blocked_conv import blocked_conv3d
 from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
 
-__all__ = ["bench_shape", "main", "REPS", "TIMED_CHAINS", "SHAPES"]
+__all__ = ["bench_shape", "main", "path_shapes", "unet_conv_shapes",
+           "REPS", "TIMED_CHAINS", "SHAPES", "INFERENCE_SHAPES"]
 
 REPS = 16
 TIMED_CHAINS = 3
 # (D, H, W, Cin, Cout): encoder stage 1 / decoder top, stage 2, stage 3.
 SHAPES = ((64, 64, 64, 32, 32), (32, 32, 32, 64, 64), (16, 16, 16, 128, 128))
+# (B, n, segments, Cout): six of the inference path's conv shapes at batch 2
+# (entry, top, decoder top, stage 2 decoder, stage 4 decoder, bottleneck),
+# as chip_smoke.py phase 3 checks and times them beside the path's own.
+INFERENCE_SHAPES = ((2, 96, (1,), 32), (2, 96, (32,), 32),
+                    (2, 96, (32, 32), 32), (2, 48, (64, 64), 64),
+                    (2, 12, (256, 256), 256), (2, 6, (256,), 256))
+
+
+def unet_conv_shapes(n, width=1.0, base=(32, 64, 128, 256, 512)):
+    """The 3³ convs of one forward and backward of ``models.UNet`` on an
+    ``n``³ input: a list of ``(kind, n_i, segments, Cout)`` with kind
+    ``"fwd"`` (18, with statistics) or ``"dx"`` (17: every conv but the
+    entry conv, whose input needs no gradient, as the forward conv of the
+    cotangent with transposed taps)."""
+    c1, c2, c3, c4, c5 = (int(c * width) for c in base)
+    fwd = []
+    for i, (cin, cout) in enumerate(((1, c1), (c1, c2), (c2, c3), (c3, c4),
+                                     (c4, c5 // 2))):
+        fwd += [(n >> i, (cin,), cout), (n >> i, (cout,), cout)]
+    for i, (cs, cu, cout) in enumerate(((c4, c5 // 2, c4 // 2),
+                                        (c3, c4 // 2, c3 // 2),
+                                        (c2, c3 // 2, c2 // 2),
+                                        (c1, c2 // 2, c1))):
+        m = n >> (3 - i)
+        fwd += [(m, (cs, cu), (cs + cu) // 2), (m, ((cs + cu) // 2,), cout)]
+    out = [("fwd", *f) for f in fwd]
+    out += [("dx", m, (cout,), sum(segs)) for m, segs, cout in fwd[1:]]
+    return out
+
+
+def _conv_ms(b, n, segs, cout, stats, reps):
+    """Mean device ms of one ``nb_conv3d`` launch (CUDA events, after one
+    warm-up) on seeded random bf16 inputs, and the mean host µs the
+    wrapper took to return from a launch."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs = tuple(torch.randn((b, n, n, n, c), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for c in segs)
+    k = (torch.randn((27, sum(segs), cout), generator=gen, device="cuda")
+         / np.sqrt(27 * sum(segs))).to(torch.bfloat16)
+    with torch.no_grad():
+        nb_conv3d(xs, k, with_stats=stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            nb_conv3d(xs, k, with_stats=stats)
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            nb_conv3d(xs, k, with_stats=stats)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_us
+
+
+# The 256^3 block's tiling (inference.plan_tiling): 96^3 patches, batch 9,
+# 3 batches per block.
+BLOCK_PATCH, BLOCK_BATCH, BLOCK_BATCHES = 96, 9, 3
+
+
+def path_shapes(train_batch=32, train_n=64):
+    """Time ``nb_conv3d`` at the block, inference and training path shapes;
+    prints one line per shape, the sums and the mean host time per launch,
+    and returns them. ``block_ms`` is per 256³ block (the 18 forward convs
+    of one batch, times its 3 batches)."""
+    rows = [("block", BLOCK_BATCH, n, segs, cout, True)
+            for kind, n, segs, cout in unet_conv_shapes(BLOCK_PATCH)
+            if kind == "fwd"]
+    rows += [("inference", b, n, segs, cout, True)
+             for b, n, segs, cout in INFERENCE_SHAPES]
+    rows += [("training", train_batch, n, segs, cout, kind == "fwd")
+             for kind, n, segs, cout in unet_conv_shapes(train_n)]
+    res = {"block_ms": 0.0, "inference_ms": 0.0, "training_ms": 0.0,
+           "shapes": []}
+    host = []
+    for path, b, n, segs, cout, stats in rows:
+        ms, host_us = _conv_ms(b, n, segs, cout, stats,
+                               50 if n <= 16 else 20 if n <= 48 else 10)
+        res[f"{path}_ms"] += ms * (BLOCK_BATCHES if path == "block" else 1)
+        res["shapes"].append([path, b, n, list(segs), cout, stats, ms,
+                              host_us])
+        host.append(host_us)
+        print(f"{path:9s} B={b:<2d} {n:3d}^3 {'|'.join(map(str, segs)):>7s}"
+              f"->{cout:<3d} {'stats' if stats else 'plain'}  {ms:.4f} ms  "
+              f"host {host_us:.1f} us", flush=True)
+        torch.cuda.empty_cache()
+    res["host_us_mean"] = float(np.mean(host))
+    print(f"sums: block (54 convs, B={BLOCK_BATCH}) {res['block_ms']:.4f} "
+          f"ms, inference (6 shapes, B=2) {res['inference_ms']:.4f} ms, "
+          f"training step (35 convs, B={train_batch}) "
+          f"{res['training_ms']:.4f} ms; host {res['host_us_mean']:.1f} us "
+          "per launch (mean over the shapes)", flush=True)
+    return res
 
 
 def _timed(chain, x):
@@ -126,12 +234,18 @@ def bench_shape(b, d, h, w, cin, cout, dtype=torch.bfloat16, device="cuda"):
 def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--path-shapes", action="store_true",
+                    help="time nb_conv3d alone at the model paths' shapes")
     args = ap.parse_args(argv)
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("nb_bench times kernels on a CUDA card; "
                                "none is available")
         print("device:", torch.cuda.get_device_name(0), flush=True)
+    if args.path_shapes:
+        out = path_shapes()
+        print(json.dumps(out), flush=True)
+        return out
     out = {"batch": args.batch, "reps": REPS, "timed_chains": TIMED_CHAINS,
            "shapes": [bench_shape(args.batch, *s, device=device)
                       for s in SHAPES]}

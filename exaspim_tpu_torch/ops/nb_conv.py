@@ -23,6 +23,8 @@ dL/dW through :func:`nb_conv3d_dw` (``csrc/nb_conv3d_dw.cu`` on the card,
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +40,10 @@ __all__ = [
 _FWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 _DW_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -122,9 +126,142 @@ def _check_cuda(tensors, what):
                          "16-byte aligned tensors")
 
 
-def _launch(xs, k, with_stats):
+# The card's streaming multiprocessors (H100 SXM): a plan aims for at least
+# this many blocks, so that no SM idles at the deep levels.
+SMS = 132
+# HALO needs the 8 x 8 plane tile to be at least this full (12^3: 0.5625);
+# smaller planes (4^3: 0.25) gather their rows (FLAT) instead.
+_HALO_MIN_FILL = 0.5
+_MODES = {"halo": 0, "flat": 1, "panel": 2, "res": 3}
+# "res" needs this many tiles per SM to be worth its weight load.
+_RES_MIN_TILES = 4
+_RES_STAGES = 4  # csrc/nb_conv3d.cu: RES_HS, the halo ring
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(b, d, h, w, segs, cout):
+    """Tile plan of ``csrc/nb_conv3d.cu`` for one conv (``segs`` a tuple;
+    cached per shape, so the result is read-only).
+
+    Returns a mapping: ``mode`` (``"halo"``: 8 (x) × 8 (y) × ``wg`` (z)
+    voxel tiles with a staged halo; ``"res"``: the same tiles at ``wg`` 2
+    and ``bn`` 32, walked by ``pblocks`` persistent blocks per channel tile
+    that keep all their weights in shared memory; ``"flat"``: 64·``wg``
+    consecutive voxels of one batch element, rows gathered per tap;
+    ``"panel"``: the Cin = 1 entry conv, halo tiles with an im2col panel),
+    ``wg`` (consumer warpgroups per block, 1 or 2), ``bn`` (output channels
+    per block, 32, 64 or 128), ``tiles`` (voxel tiles per batch element),
+    ``ntiles`` (channel tiles), ``pblocks`` (0 unless ``"res"``),
+    ``ws_rows`` (the statistics' workspace is ``(b, ws_rows, cout)``: a row
+    per unit, see :func:`_ws_row_voxels`; it depends on the extents only),
+    ``blocks`` and ``stages``.
+
+    Narrow convs (Cout 32 or 64, at most two 32-channel input chunks, all
+    widths multiples of 8) with at least :data:`_RES_MIN_TILES` tiles per
+    SM go ``"res"``. Otherwise the widest BN that divides Cout (at most
+    128) is preferred, and a block of two warpgroups; narrower BN, then one
+    warpgroup are taken while the grid has fewer than :data:`SMS` blocks.
+    A plane that fills less than half of its 8 × 8 tiles goes FLAT when
+    every segment's width is a multiple of 8 (the gathered rows are 16-byte
+    copies). Whatever the plan, a batch element's output and statistics are
+    the same bits (the kernel's note says why).
+    """
+    segs = tuple(int(c) for c in segs)
+    bn0 = 128 if cout % 128 == 0 else 64 if cout % 64 == 0 else 32
+    bns = [n for n in (128, 64, 32) if n <= bn0]
+    fill = h * w / (_cdiv(h, 8) * 8 * _cdiv(w, 8) * 8)
+    vec = all(c % 8 == 0 for c in segs)
+
+    def halo(wg):
+        return _cdiv(d, wg) * _cdiv(h, 8) * _cdiv(w, 8)
+
+    # Statistics units (:func:`_ws_row_voxels`): FLAT's 64 voxels, or the
+    # z planes of the 8 x 8 tiles; which, the extents and widths decide.
+    flat = fill < _HALO_MIN_FILL and vec
+    units = _cdiv(d * h * w, 64) if flat else d * _cdiv(h, 8) * _cdiv(w, 8)
+    chunks = sum(_cdiv(c, 32) for c in segs)
+    if (segs != (1,) and vec and not flat and chunks <= 2
+            and cout in (32, 64)
+            and b * halo(2) * (cout // 32) >= _RES_MIN_TILES * SMS):
+        ntiles = cout // 32
+        pblocks = min(b * halo(2), max(1, SMS // ntiles))
+        return types.MappingProxyType({
+            "mode": "res", "wg": 2, "bn": 32, "tiles": halo(2),
+            "ntiles": ntiles, "pblocks": pblocks, "ws_rows": units,
+            "blocks": pblocks * ntiles, "stages": _RES_STAGES})
+
+    if segs == (1,):
+        cands = [("panel", 2, halo(2))]
+    elif flat:
+        cands = [("flat", 1, units)]
+    else:
+        cands = [("halo", 2, halo(2)), ("halo", 1, halo(1))]
+    options = [(mode, wg, tiles, bn) for mode, wg, tiles in cands
+               for bn in bns]
+    best = None
+    for mode, wg, tiles, bn in options:
+        blocks = b * tiles * _cdiv(cout, bn)
+        if blocks >= SMS:
+            best = (mode, wg, tiles, bn)
+            break
+        if best is None or blocks > b * best[2] * _cdiv(cout, best[3]):
+            best = (mode, wg, tiles, bn)
+    mode, wg, tiles, bn = best
+    return types.MappingProxyType({
+        "mode": mode, "wg": wg, "bn": bn, "tiles": tiles,
+        "ntiles": _cdiv(cout, bn), "pblocks": 0, "ws_rows": units,
+        "blocks": b * tiles * _cdiv(cout, bn),
+        "stages": 5 if bn == 32 else 4})
+
+
+def _tile_voxels(plan, d, h, w, t):
+    """Flat voxel indices (within one batch element) of tile ``t`` of
+    ``plan`` that lie in the volume, in the kernel's row order."""
+    wg = plan["wg"]
+    if plan["mode"] == "flat":
+        v = torch.arange(t * 64 * wg, (t + 1) * 64 * wg)
+        return v[v < d * h * w]
+    tx, ty = _cdiv(w, 8), _cdiv(h, 8)
+    x0, y0, z0 = (t % tx) * 8, (t // tx % ty) * 8, t // (tx * ty) * wg
+    r = torch.arange(64 * wg)
+    z, y, x = z0 + r // 64, y0 + r // 8 % 8, x0 + r % 8
+    ok = (z < d) & (y < h) & (x < w)
+    return ((z * h + y) * w + x)[ok]
+
+
+def _entry():
+    """The C entry point of ``csrc/nb_conv3d.cu``, typed once."""
     from exaspim_tpu_torch.ops._build import load_library
 
+    fn = load_library("nb_conv3d").nb_conv3d_bf16
+    if fn.argtypes is None:
+        fn.argtypes = _FWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ws_row_voxels(plan, d, h, w, row):
+    """Flat voxel indices (within one batch element) of statistics unit
+    ``row``, the workspace row the kernel sums them into: 64 consecutive
+    voxels for ``"flat"``, else the z plane ``row // (⌈H/8⌉·⌈W/8⌉)`` of an
+    8 × 8 tile, in the kernel's row order. The same for every batch
+    element and batch size."""
+    if plan["mode"] == "flat":
+        v = torch.arange(row * 64, (row + 1) * 64)
+        return v[v < d * h * w]
+    tx, ty = _cdiv(w, 8), _cdiv(h, 8)
+    z, y0, x0 = row // (tx * ty), (row // tx % ty) * 8, (row % tx) * 8
+    r = torch.arange(64)
+    y, x = y0 + r // 8, x0 + r % 8
+    ok = (z < d) & (y < h) & (x < w)
+    return ((z * h + y) * w + x)[ok]
+
+
+def _launch(xs, k, with_stats, debug=0):
     _check_cuda((*xs, k), "conv")
     x0 = xs[0]
     b, d, h, w = x0.shape[:4]
@@ -133,30 +270,38 @@ def _launch(xs, k, with_stats):
         raise ValueError(f"Cout must be a multiple of 8, got {cout}")
     if d * h * w >= 2 ** 31:
         raise ValueError("D·H·W must fit a 32-bit index")
-    fn = load_library("nb_conv3d").nb_conv3d_bf16
-    fn.argtypes = _FWD_ARGTYPES
-    fn.restype = ctypes.c_int
-    out = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16,
-                      device=x0.device)
-    s1 = s2 = None
+    segs = tuple(x.shape[-1] for x in xs)
+    plan = _plan(b, d, h, w, segs, cout)
+    fn = _entry()
+    dev = x0.device
+    out = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=dev)
+    s1 = s2 = ws = None
+    if with_stats and plan["ws_rows"] > 1:  # one row: the kernel writes s1
+        ws = torch.empty((2, b, plan["ws_rows"], cout), dtype=torch.float32,
+                         device=dev)
     if with_stats:
-        s1 = torch.zeros((b, cout), dtype=torch.float32, device=x0.device)
-        s2 = torch.zeros_like(s1)
+        s1 = torch.empty((b, cout), dtype=torch.float32, device=dev)
+        s2 = torch.empty_like(s1)
     xa = xs[0]
     xb = xs[1] if len(xs) > 1 else None
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             xa.data_ptr(), None if xb is None else xb.data_ptr(),
-            xa.shape[-1], 0 if xb is None else xb.shape[-1],
+            segs[0], 0 if xb is None else segs[1],
             k.data_ptr(), out.data_ptr(),
+            None if ws is None else ws[0].data_ptr(),
+            None if ws is None else ws[1].data_ptr(),
             None if s1 is None else s1.data_ptr(),
             None if s2 is None else s2.data_ptr(),
-            b, d, h, w, cout, stream,
+            b, d, h, w, cout, _MODES[plan["mode"]], plan["bn"], plan["wg"],
+            plan["tiles"], plan["pblocks"], int(debug), stream,
         )
     if rc != 0:
         raise RuntimeError(f"nb_conv3d kernel launch failed: cudaError {rc}")
     nb_conv3d.launches += 1
+    if ws is not None:  # the C entry point also launched the reduce kernel
+        nb_conv3d.reduce_launches += 1
     return (out, s1, s2) if with_stats else out
 
 
@@ -304,7 +449,9 @@ def nb_conv3d(xs, k3, with_stats=False):
         output (what GroupNorm needs).
 
     CUDA tensors go through the Hopper kernel (bf16, contiguous) and
-    count one launch in ``nb_conv3d.launches``; CPU tensors go through
+    count one launch in ``nb_conv3d.launches``; with statistics over more
+    than one unit the kernel's fixed-order reduce runs too and counts one
+    in ``nb_conv3d.reduce_launches``. CPU tensors go through
     :func:`nb_conv3d_plain`. Differentiable in ``xs`` and ``k3``: the
     backward runs on the same kernels (see :class:`_Conv3d`).
     """
@@ -314,6 +461,7 @@ def nb_conv3d(xs, k3, with_stats=False):
 
 
 nb_conv3d.launches = 0
+nb_conv3d.reduce_launches = 0
 
 
 def nb_conv3d_stats(xs, k3):

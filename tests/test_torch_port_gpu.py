@@ -321,3 +321,95 @@ def test_pipeline_streams_on_the_card():
         streamed = denoise_volume(img, DoublePlusOne(), t, slab_z=16, **kw,
                                   **extra)
         np.testing.assert_array_equal(streamed, direct)
+
+
+def _conv_inputs(rng, b, ext, segs, cout):
+    xs = tuple(torch.from_numpy(_rand(rng, (b, *ext, c))).to(
+        "cuda", torch.bfloat16) for c in segs)
+    k = torch.from_numpy(_rand(rng, (27, sum(segs), cout),
+                               1.0 / np.sqrt(27 * sum(segs)))).to(
+        "cuda", torch.bfloat16)
+    return xs, k
+
+
+# (B, (D, H, W), segments, Cout): each tile mode of csrc/nb_conv3d.cu
+# (panel, resident, halo, flat) and the edge shapes of chip_smoke.py
+# phase 3: extents no multiple of the tile, 16 and (8|8) channels, Cout 8,
+# (64|64) at 6³, an odd width.
+_CONV_SHAPES = [(2, (16, 16, 16), (1,), 32), (2, (40, 40, 40), (32, 32), 32),
+                (2, (16, 16, 16), (64,), 128), (3, (4, 4, 4), (64,), 64),
+                (2, (10, 12, 20), (32,), 32), (2, (8, 8, 8), (16,), 16),
+                (2, (8, 8, 8), (8, 8), 8), (2, (8, 8, 8), (32,), 8),
+                (2, (6, 6, 6), (64, 64), 64), (1, (5, 7, 9), (3,), 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ext,segs,cout", _CONV_SHAPES, ids=str)
+def test_conv_kernel_edge_shapes_match_plain_and_repeat_bit_equal(
+        b, ext, segs, cout):
+    _card()
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_plain
+
+    xs, k = _conv_inputs(np.random.default_rng(11), b, ext, segs, cout)
+    y, s1, s2 = nb_conv3d_stats(xs, k)
+    y2, t1, t2 = nb_conv3d_stats(xs, k)
+    # Fixed-order statistics, no atomics: the same bits every launch.
+    assert torch.equal(y, y2) and torch.equal(s1, t1) and torch.equal(s2, t2)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        py = nb_conv3d_plain(xs, k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # One f32 sum rounded to bf16 in two orders: within two bf16 ulps.
+    err = (y.float() - py.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * py.float().abs().max().item()
+    # The statistics are the f32 sums of the kernel's own rounded output.
+    yf = y.float()
+    assert ((s1 - yf.sum((1, 2, 3))).abs()
+            <= 1e-3 * yf.abs().sum((1, 2, 3))).all()
+    torch.testing.assert_close(s2, (yf * yf).sum((1, 2, 3)), rtol=1e-3,
+                               atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ext,segs,cout", _CONV_SHAPES[:4], ids=str)
+def test_conv_kernel_planted_descriptor_fault_is_caught(b, ext, segs, cout):
+    _card()
+    from exaspim_tpu_torch.ops import nb_conv as nc
+
+    xs, k = _conv_inputs(np.random.default_rng(12), b, ext, segs, cout)
+    good = nc._launch(xs, k, False)
+    bad = nc._launch(xs, k, False, debug=1)  # tap 0 reads tap 1's view
+    ref = nc.nb_conv3d_plain(xs, k).float()
+    scale = ref.abs().max().item()
+    assert (good.float() - ref).abs().max().item() <= 2.0 ** -7 * scale
+    assert (bad.float() - ref).abs().max().item() > 2.0 ** -7 * scale
+
+
+# (B, (D, H, W), segments, Cout) whose plan changes with the batch size:
+# the 256³ block's deep levels at its batch 9 (12³ BN 128 -> 64 and 6³ two
+# warpgroups -> one at batch 2), resident tiles at batch 17 against halo
+# tiles at batch 2, and FLAT tiles (BN 128 -> 32).
+_SLOT_SHAPES = [(9, (12, 12, 12), (256, 256), 256), (9, (6, 6, 6), (256,), 256),
+                (17, (16, 16, 16), (32,), 32), (9, (64, 4, 4), (64,), 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ext,segs,cout", _SLOT_SHAPES, ids=str)
+def test_conv_kernel_batch_slot_independent(b, ext, segs, cout):
+    """Two elements launched alone, as a batch of 2 with another tile plan,
+    give the bits they get in slots 1 and 2 of the whole batch."""
+    _card()
+    from exaspim_tpu_torch.ops.nb_conv import _plan
+
+    xs, k = _conv_inputs(np.random.default_rng(13), b, ext, segs, cout)
+    def tiling(n):
+        p = _plan(n, *ext, segs, cout)
+        return p["mode"], p["wg"], p["bn"]
+
+    assert tiling(b) != tiling(2)
+    y, s1, s2 = nb_conv3d_stats(xs, k)
+    ys, t1, t2 = nb_conv3d_stats(tuple(x[1:3].clone() for x in xs), k)
+    assert torch.equal(ys, y[1:3])
+    assert torch.equal(t1, s1[1:3]) and torch.equal(t2, s2[1:3])

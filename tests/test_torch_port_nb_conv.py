@@ -96,3 +96,106 @@ def test_rejects_bad_inputs():
     assert float(x1.grad[0, 1, 3, 3, 0]) == 27 * 32
     assert torch.all(k1.grad[1, 1, 1] == 4 * 8 * 8)
 
+
+# The tile plan of csrc/nb_conv3d.cu, checked here because the kernel runs
+# only on the card. Shapes (B, D, H, W, segments, Cout): the inference path's
+# six (chip_smoke.py phase 3, B = 2, and the path's own B = 9), every conv of
+# one training step (B = 32 of 64³), and extents that are no multiple of the
+# tile, with narrow and odd widths.
+def _plan_shapes():
+    from exaspim_tpu_torch.ops.nb_bench import (
+        INFERENCE_SHAPES,
+        unet_conv_shapes,
+    )
+
+    shapes = {(b, n, n, n, s, c) for b, n, s, c in INFERENCE_SHAPES}
+    shapes |= {(9, n, n, n, s, c) for _, n, s, c in INFERENCE_SHAPES}
+    shapes |= {(32, n, n, n, segs, cout)
+               for _, n, segs, cout in unet_conv_shapes(64)}
+    shapes |= {(2, 10, 12, 20, (32,), 32), (2, 8, 8, 8, (16,), 16),
+               (2, 8, 8, 8, (8, 8), 8), (2, 8, 8, 8, (32,), 8),
+               (2, 6, 6, 6, (64, 64), 64), (1, 5, 7, 9, (3,), 16),
+               (3, 13, 9, 17, (40, 24), 48), (1, 3, 17, 30, (1,), 24)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("shape", _plan_shapes(), ids=str)
+def test_plan_covers_every_output_voxel_once(shape):
+    from exaspim_tpu_torch.ops.nb_conv import (
+        _plan,
+        _tile_voxels,
+        _ws_row_voxels,
+    )
+
+    b, d, h, w, segs, cout = shape
+    plan = _plan(b, d, h, w, segs, cout)
+    bn = plan["bn"]
+    assert bn in (32, 64, 128) and plan["wg"] in (1, 2)
+    assert plan["ntiles"] * bn >= cout > (plan["ntiles"] - 1) * bn
+    if plan["mode"] == "res":
+        assert (plan["bn"], plan["wg"]) == (32, 2)
+        assert plan["blocks"] == plan["pblocks"] * plan["ntiles"]
+    if plan["mode"] == "panel":
+        assert segs == (1,)
+    if plan["mode"] == "flat":
+        assert all(c % 8 == 0 for c in segs)
+    vox = torch.cat([_tile_voxels(plan, d, h, w, t)
+                     for t in range(plan["tiles"])])
+    assert torch.equal(vox.sort().values, torch.arange(d * h * w))
+    # The grid has one tile per tile row: the last holds voxels, one more
+    # would not. The statistics' workspace, (B, ws_rows, Cout), has a row
+    # per unit (a z plane of an 8 x 8 tile, or 64 FLAT voxels); the units
+    # cover each element's voxels once, and neither their count nor their
+    # voxels depend on the batch size, so neither do the sums' order.
+    assert len(_tile_voxels(plan, d, h, w, plan["tiles"] - 1)) > 0
+    assert len(_tile_voxels(plan, d, h, w, plan["tiles"])) == 0
+    units = [_ws_row_voxels(plan, d, h, w, r) for r in range(plan["ws_rows"])]
+    assert all(len(u) > 0 for u in units)
+    assert torch.equal(torch.cat(units).sort().values, torch.arange(d * h * w))
+    for other in (1, 2, 9, 32):
+        p2 = _plan(other, d, h, w, segs, cout)
+        assert p2["ws_rows"] == plan["ws_rows"]
+        assert (p2["mode"] == "flat") == (plan["mode"] == "flat")
+
+
+@pytest.mark.parametrize("shape", [(9, 6, 6, 6, (256,), 256),
+                                   (9, 6, 6, 6, (256, 256), 256),
+                                   (32, 4, 4, 4, (256,), 256),
+                                   (32, 8, 8, 8, (256, 256), 256),
+                                   (9, 12, 12, 12, (256, 256), 256)],
+                         ids=str)
+def test_plan_fills_the_card_at_the_deep_levels(shape):
+    from exaspim_tpu_torch.ops.nb_conv import SMS, _plan
+
+    assert _plan(*shape)["blocks"] >= SMS == 132
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 12, 20, (32,), 32),
+                                   (2, 6, 6, 6, (64, 64), 64),
+                                   (3, 4, 4, 4, (64,), 64),
+                                   (2, 40, 40, 40, (32, 32), 32)], ids=str)
+def test_fixed_order_stats_model_matches_plain(shape):
+    """The kernel's statistics, modelled in plain PyTorch: per workspace row
+    (a unit: one z plane of an 8 x 8 tile, or 64 FLAT voxels) the f32 sums
+    of the rounded outputs of its voxels, then the rows in order. They
+    equal the plain version's to f32 rounding, and the model is
+    deterministic by construction."""
+    from exaspim_tpu_torch.ops.nb_conv import _plan, _ws_row_voxels
+
+    b, d, h, w, segs, cout = shape
+    rng = np.random.default_rng(3)
+    xs = tuple(torch.from_numpy(_rand(rng, (b, d, h, w, c))).bfloat16()
+               for c in segs)
+    k = torch.from_numpy(_rand(rng, (27, sum(segs), cout), 0.05)).bfloat16()
+    y, s1, s2 = nb_conv3d_stats(xs, k)
+    plan = _plan(b, d, h, w, segs, cout)
+    yf = y.float().reshape(b, d * h * w, cout)
+    m1 = torch.zeros(b, cout)
+    m2 = torch.zeros(b, cout)
+    for r in range(plan["ws_rows"]):
+        v = yf[:, _ws_row_voxels(plan, d, h, w, r)]
+        m1 += v.sum(1)
+        m2 += (v * v).sum(1)
+    scale = yf.abs().sum(1)
+    assert float(((m1 - s1).abs() / scale).max()) < 1e-5
+    assert float(((m2 - s2).abs() / s2).max()) < 1e-5
