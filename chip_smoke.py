@@ -10,7 +10,8 @@ line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile all kernels, print the conv's seconds and ptxas report
-   (no register spills allowed);
+   (no register spills allowed in the three conv sources: ``nb_conv3d``,
+   ``nb_conv3d_dw``, ``blocked_conv3d``);
 3. kernel vs plain: the Hopper conv against its plain PyTorch version on
    the card, at every conv shape of phase 4's path at its own batch (9)
    and at six of its shapes at batch 2, the fixed comparison set
@@ -36,8 +37,9 @@ line:
    default configuration (batch 32 of 64³) is run once to record every
    kernel launch's shape; each conv shape (forward with statistics, and
    the backward's dL/dx in plain mode) and each dL/dW shape is then held
-   against its plain version at batch 32 and timed beside it, cuDNN (a
-   yardstick only) and the card's bound;
+   against its plain version at batch 32 (two launches bit-equal, a
+   planted dL/dW tap fault caught) and timed beside it, cuDNN's
+   ``convolution_backward`` (a yardstick only) and the card's bound;
 8. byte-histogram kernel vs plain on the byte planes of a validation
    batch (counts equal), beside one ``torch.bincount``;
 9. gradient check, full-width bf16 UNet at 32³, batch 2: (a) each conv's
@@ -53,6 +55,12 @@ line:
     48³ block; then the step time over a window: two ``train()`` runs of
     8 and 40 steps at the default ``log_every`` and ``val_every``, their
     wall-time difference over the 32 steps between them;
+10b. width 0.3 (conv widths 9, 19, 38, 76): phase 9's per-conv and
+    whole-model gradient checks at that width (no planted faults), one
+    cached training step (35 conv + 18 dL/dW launches, every parameter
+    updated) and ``predict`` of a 48³ phantom block (linear transform)
+    against the plain path on the card in bf16 and the f32 CPU path, every
+    conv counted on the kernels;
 11. BM4D matching kernels vs plain at the default parameters (block 4,
     step 3, search 9, group 16): the distance table and the selected
     starts on a 64³ raw patch, on its stage-1 estimate and on a 128³
@@ -130,9 +138,12 @@ PEAK_BYTES = 3.35e12
 OUT_RTOL = 2.0 ** -7
 STATS_RTOL = 1e-3
 # dL/dW kernel vs plain: both sum exact bf16 products in f32, in different
-# orders; elementwise |Δ| must stay within 1e-3 of the same contraction
-# taken over |x| and |g| (the sum's own rounding scale).
-DW_RTOL = 1e-3
+# orders; elementwise |Δ| must stay within DW_RTOL of the same contraction
+# taken over |x| and |g| (the sum's own rounding scale). Set between the
+# readings on an H100 (PERF.md): sound launches at most 4.8e-7 at a
+# training step's shapes, the weakest planted fault (tap 0 reads tap 1's
+# view) 1.9e-3.
+DW_RTOL = 1e-5
 # Rounding of a bf16 result: at most half an ulp, 2^-8 of its value.
 BF16_HALF_ULP = 2.0 ** -8
 # Whole-model gradients (phase 9b): per-parameter relative L2 of the card's
@@ -146,6 +157,12 @@ BF16_HALF_ULP = 2.0 ** -8
 # with faults planted.
 GRAD_REL_L2_BF16 = 0.15
 GRAD_REL_L2_F32 = 0.2
+# Width-0.3 predict (phase 10c): relative L2 of the model's change to its
+# input, the card's kernel path against the plain path on the card in bf16
+# (the same roundings, sums in other orders) and against the f32 CPU path.
+# About three times the readings on an H100 (5.7e-3 and 7.9e-3; PERF.md).
+WIDTH_PREDICT_REL_BF16 = 0.018
+WIDTH_PREDICT_REL_F32 = 0.024
 FAULTS = ("no stats fold", "dL/dx taps not flipped", "dL/dW tap 0 zeroed")
 TRAIN_STEPS, VAL_EVERY, N_TRAIN, N_VAL, PATCH = 12, 6, 128, 32, 64
 # BM4D at the defaults of precompute(): block, group, step, search, sigma.
@@ -361,9 +378,14 @@ def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True):
 
 
 def check_dw(b, n, segs, cout, seed):
-    """dL/dW kernel vs plain at one training shape; returns its record."""
+    """dL/dW kernel vs plain at one training shape: within DW_RTOL of the
+    |x|·|g| contraction, two launches bit-equal, the planted fault (tap 0
+    reads tap 1's view) caught; timed beside the plain version, one
+    ``convolution_backward`` (a yardstick only) and the card's bound.
+    Returns its record."""
     import torch
 
+    from exaspim_tpu_torch.ops import nb_conv as nc
     from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw, nb_conv3d_dw_plain
 
     name = "dw " + shape_name(n, segs, cout)
@@ -373,18 +395,24 @@ def check_dw(b, n, segs, cout, seed):
                            dtype=torch.bfloat16) for c in segs)
     g = torch.randn((b, n, n, n, cout), generator=gen, device="cuda",
                     dtype=torch.bfloat16) * 0.1
+    plan = nc._dw_plan(b, n, n, n, tuple(segs), cout)
     got = nb_conv3d_dw(xs, g)
     again = nb_conv3d_dw(xs, g)
+    bad = nc._launch_dw(xs, g, debug=1)
     plain = nb_conv3d_dw_plain(xs, g)
     scale = nb_conv3d_dw_plain(tuple(x.abs() for x in xs), g.abs())
     torch.cuda.synchronize()
     d = (got - plain).abs()
     err = float(d.max())
     rel = float((d / scale.clamp(min=1e-30)).max())
+    fault = float(((bad - plain).abs() / scale.clamp(min=1e-30)).max())
     if not torch.isfinite(got).all() or bool((d > DW_RTOL * scale).any()):
         fail(f"{name}: off by {err} (max |d|/scale {rel:.3e})")
     if not torch.equal(got, again):
         fail(f"{name}: two launches on the same inputs differ")
+    if not fault > DW_RTOL:
+        fail(f"{name}: the planted fault was not caught ({fault:.3e})")
+    del again, bad
     reps = 20 if n <= 32 else 10
     kernel_ms = cuda_ms(lambda: nb_conv3d_dw(xs, g), reps)
     plain_ms = cuda_ms(lambda: nb_conv3d_dw_plain(xs, g), 3)
@@ -398,12 +426,15 @@ def check_dw(b, n, segs, cout, seed):
     flops = 2.0 * 27 * cin * cout * vox
     nbytes = 2 * vox * (cin + cout) + 4 * 27 * cin * cout
     rec = {
-        "shape": name, "batch": b, "max_abs_err": err, "rel_to_abs": rel,
+        "shape": name, "batch": b, "plan": dict(plan), "max_abs_err": err,
+        "rel_to_abs": rel, "fault_rel": fault,
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         **bound(flops, nbytes), "tflops": flops / kernel_ms / 1e9,
     }
-    print(f"{name} B={b}: max|d|={err:.3e} (max |d|/|x||g| {rel:.2e} <= "
-          f"{DW_RTOL:.0e}, repeat bit-equal) kernel_ms={kernel_ms:.4f} "
+    print(f"{name} B={b} {plan['mode']} splits={plan['splits']} "
+          f"blocks={plan['blocks']}: max|d|={err:.3e} (max |d|/|x||g| "
+          f"{rel:.2e} <= {DW_RTOL:.0e}, repeat bit-equal, planted fault "
+          f"{fault:.2e} caught) kernel_ms={kernel_ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
           f"{rec['tflops']:.1f} TFLOP/s", flush=True)
@@ -606,8 +637,9 @@ def worst(rows, key):
     return max(vals)
 
 
-def grad_check():
-    """Phase 9 (see the module docstring)."""
+def grad_check(width=1.0, faults=FAULTS):
+    """Phase 9 (see the module docstring) for a UNet of ``width``; the
+    planted ``faults`` of (c) (phase 10b passes none)."""
     import torch
 
     from exaspim_tpu_torch.losses import signal_preserving_loss
@@ -617,7 +649,7 @@ def grad_check():
     rng = np.random.default_rng(9)
     x = rng.normal(0.3, 0.1, (2, 32, 32, 32, 1)).astype(np.float32)
     y = (0.9 * x + rng.normal(0.0, 0.02, x.shape)).astype(np.float32)
-    kw = dict(width_multiplier=1.0, head_init="normal")
+    kw = dict(width_multiplier=width, head_init="normal")
     card = UNet(dtype=torch.bfloat16, **kw).init_weights(7).cuda()
 
     def grads(model, dev, fault=None, records=None):
@@ -676,7 +708,7 @@ def grad_check():
 
     # (c) planted faults: (a) must catch each; (b)'s readings are shown.
     out["faults"] = {}
-    for fault in FAULTS:
+    for fault in faults:
         records = []
         _, g_bad = grads(card, "cuda", fault, records)
         rows = conv_backward_errors(records)
@@ -874,7 +906,7 @@ def training_path(train_dir, val_dir):
     run = cached_step(train_dir, trainer.state, trainer.transform)
     run()
     prof = profile_once(lambda: [run() for _ in range(2)], key=(
-        "nb_conv3d_kernel", "nb_stats_reduce", "nb_conv3d_dw"))
+        "nb_conv3d_kernel", "nb_stats_reduce", "dw_"))
     del run
 
     phase("training path: best checkpoint -> restore_pipeline -> predict")
@@ -923,6 +955,115 @@ def training_path(train_dir, val_dir):
         "best_checkpoint": os.path.basename(best),
         "restored_mean_abs_change": dev.mean(),
     }
+
+
+def width_path(train_dir, transform_cfg):
+    """Phase 10b: ``width_multiplier=0.3`` (stages 9, 19, 38, 76, no width a
+    multiple of 8 but 76's input) on the kernels. (a) phase 9's gradient
+    check at this width: each conv's backward against its f32 reference,
+    whole-model gradients against the plain path on the CPU; (b) one cached
+    training step of the default configuration, counted; (c) ``predict``
+    of a 48³ block of the phantom (through a linear transform) against the
+    plain path on the card in bf16 and the f32 CPU path. Returns its
+    record."""
+    import torch
+
+    from exaspim_tpu_torch.data.synthetic import (
+        neurite_phantom,
+        noisy_observation,
+    )
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.models import UNet
+    from exaspim_tpu_torch.ops.nb_conv import (
+        nb_conv3d,
+        nb_conv3d_dw,
+        nb_conv3d_plain,
+    )
+    from exaspim_tpu_torch.train.state import create_train_state
+    from exaspim_tpu_torch.transforms import build_transform
+
+    widths = sorted({m.kernel.shape[-1] for m in UNet(
+        width_multiplier=0.3).modules() if hasattr(m, "kernel")
+        and m.kernel.dim() == 3})
+    print(f"width 0.3: conv widths {widths}", flush=True)
+    rec = {"conv_widths": widths, "grad_check": grad_check(0.3, faults=())}
+
+    transform = build_transform(transform_cfg)
+    # A head drawn from a normal (training starts from zeros, which leaves
+    # every gradient but the head's zero in the first step), so that the
+    # step moves every parameter through the kernels' gradients.
+    state = create_train_state(
+        UNet(width_multiplier=0.3, head_init="normal",
+             dtype=torch.bfloat16).cuda(), lr=1e-3, total_steps=TRAIN_STEPS,
+        seed=42)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    run = cached_step(train_dir, state, transform)
+    c0 = nb_conv3d.launches, nb_conv3d_dw.launches
+    _, loss = run()
+    torch.cuda.synchronize()
+    launches = (nb_conv3d.launches - c0[0], nb_conv3d_dw.launches - c0[1])
+    moved = sum(not torch.equal(a, p.detach()) for a, p in
+                zip(before, state.model.parameters()))
+    print(f"(b) one cached training step at width 0.3, batch 32 of "
+          f"{PATCH}^3: loss {float(loss):.6f}, {moved} of {len(before)} "
+          f"parameters updated, launches conv {launches[0]}, dL/dW "
+          f"{launches[1]} (expected 35, 18)", flush=True)
+    if launches != (35, 18) or not np.isfinite(float(loss)) \
+            or moved != len(before):
+        fail(f"width 0.3 step: launches {launches}, loss {float(loss)}, "
+             f"{moved} parameters moved")
+    rec["step"] = {"loss": float(loss), "launches": launches}
+    del run, before
+
+    del state
+    clean, _ = neurite_phantom((48,) * 3, n_tubes=6, seed=0)
+    img = noisy_observation(clean, seed=1)
+    # A normal head again, so that the model changes its input and the
+    # check reads the convs; and a linear transform, so that the counts
+    # are linear in the model's output (the asinh inverse is exponential
+    # and turns a random head's logits into ~1e14 counts, where bf16's
+    # relative error is multiplied by the logit).
+    model = UNet(width_multiplier=0.3, head_init="normal",
+                 dtype=torch.bfloat16).init_weights(7).cuda().eval()
+    transform = build_transform({"kind": "linear", "params": {
+        "mn": 0.0, "mx": float(img.max()), "clip": 8.0}})
+    c0 = nb_conv3d.launches, nb_conv3d_dw.launches
+    with torch.no_grad():
+        got = predict(img, model, transform, patch_size=32, overlap=OVERLAP,
+                      trim=TRIM, batch_size=8, return_float=True)
+    launches = (nb_conv3d.launches - c0[0], nb_conv3d_dw.launches - c0[1])
+    # The same model on the card with every conv on its plain version (the
+    # same bf16 roundings, other sums), and the f32 model on the CPU.
+    with torch.no_grad(), patched(
+            _conv=lambda xs, k, with_stats: nb_conv3d_plain(xs, k,
+                                                            with_stats)):
+        plain = predict(img, model, transform, patch_size=32,
+                        overlap=OVERLAP, trim=TRIM, batch_size=8,
+                        return_float=True)
+    cpu = UNet(width_multiplier=0.3, dtype=torch.float32)
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = predict(img, cpu, transform, patch_size=32, overlap=OVERLAP,
+                      trim=TRIM, batch_size=8, return_float=True,
+                      device="cpu")
+    # Relative L2 of the model's change to its input.
+    change = np.linalg.norm(ref - img)
+    rel_b = float(np.linalg.norm(got - plain)
+                  / max(np.linalg.norm(plain - img), 1e-30))
+    rel = float(np.linalg.norm(got - ref) / max(change, 1e-30))
+    n_patches = launches[0] // 18
+    print(f"(c) predict 48^3 at width 0.3: {launches[0]} conv launches "
+          f"({n_patches} batches x 18), {launches[1]} dL/dW; rel L2 of the "
+          f"change: vs the plain path on the card in bf16 {rel_b:.3e} "
+          f"(limit {WIDTH_PREDICT_REL_BF16}), vs CPU f32 {rel:.3e} (limit "
+          f"{WIDTH_PREDICT_REL_F32}); |change| {change:.1f}", flush=True)
+    if launches[1] != 0 or launches[0] == 0 or launches[0] % 18 \
+            or not np.isfinite(got).all() \
+            or rel_b > WIDTH_PREDICT_REL_BF16 or rel > WIDTH_PREDICT_REL_F32:
+        fail(f"width 0.3 predict: launches {launches}, rel {rel_b}, {rel}")
+    rec["predict"] = {"launches": launches, "rel_l2_vs_plain_bf16": rel_b,
+                      "rel_l2_vs_cpu_f32": rel}
+    return rec
 
 
 def match_operations(shape, grid):
@@ -1778,10 +1919,11 @@ def main():
     print(f"build_s={record['build_s']:.2f} (all seven sources, in parallel; "
           f"nb_conv3d {build_s['nb_conv3d']:.2f})", flush=True)
     print_ptxas(_build, "nb_conv3d")
-    spills = [ln for ln in _build.build_log("nb_conv3d").splitlines()
-              if re.search(r"[1-9][0-9]* bytes spill", ln)]
-    if spills:
-        fail(f"nb_conv3d spills registers: {spills}")
+    for name in ("nb_conv3d", "nb_conv3d_dw", "blocked_conv3d"):
+        spills = [ln for ln in _build.build_log(name).splitlines()
+                  if re.search(r"[1-9][0-9]* bytes spill", ln)]
+        if spills:
+            fail(f"{name} spills registers: {spills}")
 
     phase("kernel vs plain")
     from exaspim_tpu_torch.ops import nb_conv as nc
@@ -1980,6 +2122,10 @@ def main():
 
     phase("training path: train() at the default configuration")
     record["train"] = training_path(train_dir, val_dir)
+    torch.cuda.empty_cache()
+
+    phase("width 0.3 UNet on the kernels (widths no multiple of 8)")
+    record["width_0_3"] = width_path(train_dir, transform_cfg)
     torch.cuda.empty_cache()
 
     phase("build (BM4D and asinh kernels)")

@@ -10,8 +10,13 @@ and is gone; activations stay plain ``(B, D, H, W, C)`` and the taps
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 ``csrc/blocked_conv3d.cu`` (bf16, channels in multiples of 32) or raises
-with the reason. On a CPU tensor it runs :func:`blocked_conv3d_plain`, the
-plain PyTorch version, which the CPU tests and the kernel check use.
+with the reason. That source is its own entry point over the forward conv
+design of ``csrc/nb_conv3d.cu`` (``nb_conv3d_fwd.cuh``: a halo tile in
+shared memory read by ``wgmma`` as 27 shifted views), instantiated for one
+input segment and no statistics, with the tile plan of
+:func:`~exaspim_tpu_torch.ops.nb_conv._plan`. On a CPU tensor it runs
+:func:`blocked_conv3d_plain`, the plain PyTorch version, which the CPU
+tests and the kernel check use.
 
 Differentiable like the reference's ``custom_vjp`` (``_vjp_bwd:194``): dL/dx
 is the same kernel on the taps flipped over the three spatial axes with
@@ -26,12 +31,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw
+from exaspim_tpu_torch.ops.nb_conv import _MODES, _plan, nb_conv3d_dw
 
 __all__ = ["blocked_conv3d", "blocked_conv3d_plain", "supports_blocked_conv"]
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 ]
@@ -87,7 +93,7 @@ def _launch(x, k3):
     if cin % _CHANNELS or cout % _CHANNELS:
         raise ValueError(
             f"the CUDA blocked conv kernel needs Cin and Cout in multiples "
-            f"of {_CHANNELS} (its K chunk and N tile; dL/dx swaps them); "
+            f"of {_CHANNELS} (the reference's gate; dL/dx swaps them); "
             f"got {cin} -> {cout}")
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the launch grid's 65535")
@@ -96,6 +102,9 @@ def _launch(x, k3):
     if x.data_ptr() % 16 or k.data_ptr() % 16:
         raise ValueError("the CUDA blocked conv kernel needs 16-byte "
                          "aligned tensors")
+    if d * h * w >= 2 ** 31:
+        raise ValueError("D·H·W must fit a 32-bit index")
+    plan = _plan(b, d, h, w, (cin,), cout)
     fn = load_library("blocked_conv3d").blocked_conv3d_bf16
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -104,7 +113,8 @@ def _launch(x, k3):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), k.data_ptr(), out.data_ptr(), b, d, h, w, cin,
-                cout, stream)
+                cout, _MODES[plan["mode"]], plan["bn"], plan["wg"],
+                plan["tiles"], plan["pblocks"], stream)
     if rc != 0:
         raise RuntimeError(
             f"blocked_conv3d kernel launch failed: cudaError {rc}")

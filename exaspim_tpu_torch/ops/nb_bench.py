@@ -5,10 +5,11 @@ conv shapes three ways on the card:
 
 * ``F.conv3d`` (cuDNN; the counterpart of the script's XLA column, a
   yardstick only: the port never calls it on a path),
-* ``blocked_conv3d`` (``csrc/blocked_conv3d.cu``, the shared-memory halo
-  tile),
-* ``nb_conv3d`` (``csrc/nb_conv3d.cu``, the implicit GEMM that re-reads
-  every voxel once per tap).
+* ``blocked_conv3d`` (``csrc/blocked_conv3d.cu``, the counterpart of
+  ``ops/pallas_conv.py``: its own entry point over the same forward
+  kernels, ``csrc/nb_conv3d_fwd.cuh``, for one segment without
+  statistics),
+* ``nb_conv3d`` (``csrc/nb_conv3d.cu``, the conv of the model paths).
 
 Each timing chains ``REPS`` applications (the output of one is the input
 of the next, so nothing can be elided) and ends in a scalar f32 checksum;
@@ -28,9 +29,11 @@ host time per launch: the 18 forward convs of the 256³ block's path
 times 3 batches per block), six of those shapes at a fixed batch
 (:data:`INFERENCE_SHAPES`, batch 2), and every conv of one training step
 of the default configuration (batch 32 of 64³: 18 forwards with
-statistics, 17 dL/dx in plain mode, :func:`unet_conv_shapes`). It uses
-only the public ``nb_conv3d``, so the same file times an older checkout
-of the package put first on ``PYTHONPATH``:
+statistics, 17 dL/dx in plain mode, :func:`unet_conv_shapes`), and the
+step's 18 dL/dW launches through ``nb_conv3d_dw`` (:func:`unet_dw_shapes`,
+summed as ``dw_ms``). It uses only the public ``nb_conv3d`` and
+``nb_conv3d_dw``, so the same file times an older checkout of the package
+put first on ``PYTHONPATH``:
 
     PYTHONPATH=OLD_ROOT python exaspim_tpu_torch/ops/nb_bench.py --path-shapes
 """
@@ -46,10 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from exaspim_tpu_torch.ops.blocked_conv import blocked_conv3d
-from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
+from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
 
 __all__ = ["bench_shape", "main", "path_shapes", "unet_conv_shapes",
-           "REPS", "TIMED_CHAINS", "SHAPES", "INFERENCE_SHAPES"]
+           "unet_dw_shapes", "REPS", "TIMED_CHAINS", "SHAPES", "INFERENCE_SHAPES"]
 
 REPS = 16
 TIMED_CHAINS = 3
@@ -85,42 +88,71 @@ def unet_conv_shapes(n, width=1.0, base=(32, 64, 128, 256, 512)):
     return out
 
 
+def unet_dw_shapes(n, width=1.0):
+    """The dL/dW launches of one backward of ``models.UNet`` on an ``n``³
+    input: ``(n_i, segments, Cout)`` of each of the 18 forward convs."""
+    return [(m, segs, cout) for kind, m, segs, cout
+            in unet_conv_shapes(n, width) if kind == "fwd"]
+
+
 def _conv_ms(b, n, segs, cout, stats, reps):
-    """Mean device ms of one ``nb_conv3d`` launch (CUDA events, after one
-    warm-up) on seeded random bf16 inputs, and the mean host µs the
-    wrapper took to return from a launch."""
+    """Mean device ms of one ``nb_conv3d`` launch (``stats`` True or
+    False) or one ``nb_conv3d_dw`` launch (``stats == "dw"``; ``cout`` is
+    then the cotangent's width) on seeded random bf16 inputs (CUDA events
+    around one replay of a CUDA graph of ``reps`` wrapper calls, after one
+    warm-up, so that the host's time per call, which approaches the
+    device's at the smallest shapes, does not enter), and the mean host µs
+    the wrapper took to return from a launch."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     xs = tuple(torch.randn((b, n, n, n, c), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for c in segs)
-    k = (torch.randn((27, sum(segs), cout), generator=gen, device="cuda")
-         / np.sqrt(27 * sum(segs))).to(torch.bfloat16)
+    if stats == "dw":
+        g = torch.randn((b, n, n, n, cout), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+
+        def run():
+            nb_conv3d_dw(xs, g)
+    else:
+        k = (torch.randn((27, sum(segs), cout), generator=gen, device="cuda")
+             / np.sqrt(27 * sum(segs))).to(torch.bfloat16)
+
+        def run():
+            nb_conv3d(xs, k, with_stats=stats)
     with torch.no_grad():
-        nb_conv3d(xs, k, with_stats=stats)
+        run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            nb_conv3d(xs, k, with_stats=stats)
+            run()
         host_us = (time.perf_counter() - t0) / reps * 1e6
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                run()
+        graph.replay()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            nb_conv3d(xs, k, with_stats=stats)
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
+        del graph
     return start.elapsed_time(end) / reps, host_us
 
 
+_MODE_NAMES = {True: "stats", False: "plain", "dw": "dL/dW"}
 # The 256^3 block's tiling (inference.plan_tiling): 96^3 patches, batch 9,
 # 3 batches per block.
 BLOCK_PATCH, BLOCK_BATCH, BLOCK_BATCHES = 96, 9, 3
 
 
 def path_shapes(train_batch=32, train_n=64):
-    """Time ``nb_conv3d`` at the block, inference and training path shapes;
+    """Time ``nb_conv3d`` at the block, inference and training path shapes
+    and ``nb_conv3d_dw`` at the training step's;
     prints one line per shape, the sums and the mean host time per launch,
     and returns them. ``block_ms`` is per 256³ block (the 18 forward convs
-    of one batch, times its 3 batches)."""
+    of one batch, times its 3 batches); ``dw_ms`` sums the training step's
+    18 dL/dW launches."""
     rows = [("block", BLOCK_BATCH, n, segs, cout, True)
             for kind, n, segs, cout in unet_conv_shapes(BLOCK_PATCH)
             if kind == "fwd"]
@@ -128,8 +160,10 @@ def path_shapes(train_batch=32, train_n=64):
              for b, n, segs, cout in INFERENCE_SHAPES]
     rows += [("training", train_batch, n, segs, cout, kind == "fwd")
              for kind, n, segs, cout in unet_conv_shapes(train_n)]
+    rows += [("dw", train_batch, n, segs, cout, "dw")
+             for n, segs, cout in unet_dw_shapes(train_n)]
     res = {"block_ms": 0.0, "inference_ms": 0.0, "training_ms": 0.0,
-           "shapes": []}
+           "dw_ms": 0.0, "shapes": []}
     host = []
     for path, b, n, segs, cout, stats in rows:
         ms, host_us = _conv_ms(b, n, segs, cout, stats,
@@ -139,14 +173,15 @@ def path_shapes(train_batch=32, train_n=64):
                               host_us])
         host.append(host_us)
         print(f"{path:9s} B={b:<2d} {n:3d}^3 {'|'.join(map(str, segs)):>7s}"
-              f"->{cout:<3d} {'stats' if stats else 'plain'}  {ms:.4f} ms  "
+              f"->{cout:<3d} {_MODE_NAMES[stats]}  {ms:.4f} ms  "
               f"host {host_us:.1f} us", flush=True)
         torch.cuda.empty_cache()
     res["host_us_mean"] = float(np.mean(host))
     print(f"sums: block (54 convs, B={BLOCK_BATCH}) {res['block_ms']:.4f} "
           f"ms, inference (6 shapes, B=2) {res['inference_ms']:.4f} ms, "
           f"training step (35 convs, B={train_batch}) "
-          f"{res['training_ms']:.4f} ms; host {res['host_us_mean']:.1f} us "
+          f"{res['training_ms']:.4f} ms, dL/dW of the step (18 launches) "
+          f"{res['dw_ms']:.4f} ms; host {res['host_us_mean']:.1f} us "
           "per launch (mean over the shapes)", flush=True)
     return res
 
@@ -235,7 +270,8 @@ def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--path-shapes", action="store_true",
-                    help="time nb_conv3d alone at the model paths' shapes")
+                    help="time nb_conv3d and nb_conv3d_dw alone at the "
+                    "model paths' shapes")
     args = ap.parse_args(argv)
     if device == "cuda":
         if not torch.cuda.is_available():

@@ -49,7 +49,8 @@ _DW_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 
 
@@ -266,8 +267,6 @@ def _launch(xs, k, with_stats, debug=0):
     x0 = xs[0]
     b, d, h, w = x0.shape[:4]
     cout = k.shape[-1]
-    if cout % 8:
-        raise ValueError(f"Cout must be a multiple of 8, got {cout}")
     if d * h * w >= 2 ** 31:
         raise ValueError("D·H·W must fit a 32-bit index")
     segs = tuple(x.shape[-1] for x in xs)
@@ -314,42 +313,129 @@ def _conv(xs, k, with_stats):
     return _launch(xs, k, with_stats)
 
 
-# Workspace splits of the dL/dW kernel: enough (M, N, split) blocks to fill
-# the card several times over, at least 16 K steps of 64 voxels per split.
-_DW_TARGET_BLOCKS = 2048
-_DW_MIN_STEPS = 16
+# dL/dW plan (csrc/nb_conv3d_dw.cu): voxel tiles of 8 x 8 x _DW_ZT[mode]
+# (FLAT: _DW_ZT whole planes of 16 voxels), a Cout tile of 32 (FLAT: two,
+# one per warpgroup), and a Cin slice of two 32-channel chunks with one
+# block per dz plane (HALO, FLAT), or of one chunk whose block takes all 27
+# taps (ZSTACK). The split count is chosen by a cost model: waves of blocks
+# (two HALO blocks per SM, one ZSTACK or FLAT, four PANEL)
+# times the tiles each block walks, at _DW_TILE_US a tile, plus the
+# reduce's read of every split's workspace slice (FLAT: as many splits as
+# run in one wave). The tile cost is the
+# model's constant, not a measurement; the cap keeps the workspace under
+# 256 MiB.
+_DW_ZT = {"halo": 2, "panel": 4, "zstack": 2, "flat": 8}
+_DW_BN = {"halo": 32, "panel": 32, "zstack": 32, "flat": 64}
+_DW_MODES = {"halo": 0, "panel": 1, "zstack": 2, "flat": 3}
+_DW_TILE_US = 1.0
+_DW_PER_SM = {"halo": 2, "panel": 4, "zstack": 1, "flat": 1}
+_DW_BYTES_PER_US = 3.0e6
+_DW_WS_CAP = 2 ** 28
+# FLAT: a padded plane ((H + 2) x W) of at most this many voxels.
+_DW_FLAT_PW = 24
 
 
-def _dw_splits(nvox, segs, cout):
-    cin = sum(segs)
-    aligned = all(c % 32 == 0 for c in segs)
-    mblocks = 9 * (cin // 32) if aligned else -(-27 * cin // 32)
-    bn = 64 if cout % 64 == 0 else 32
-    base = mblocks * -(-cout // bn)
-    steps = -(-nvox // 64)
-    want = -(-_DW_TARGET_BLOCKS // base)
-    return max(1, min(want, steps // _DW_MIN_STEPS, 4096))
+@functools.lru_cache(maxsize=512)
+def _dw_plan(b, d, h, w, segs, cout):
+    """Plan of ``csrc/nb_conv3d_dw.cu`` for one dL/dW launch (``segs`` a
+    tuple; cached per shape, so the result is read-only).
+
+    Returns a mapping: ``mode`` (``"panel"`` for the Cin = 1 entry conv;
+    ``"flat"`` for planes of 16 voxels (4 × 4, 8 × 2; every width a
+    multiple of 8), whose tiles are whole planes with no padded row;
+    ``"zstack"`` for one segment of at most 32 channels, a multiple of 8,
+    whose m64 block stacks two dz planes; else ``"halo"``), ``tiles``
+    (voxel tiles of one batch element: 8 × 8 × 4 voxels in ``"panel"``,
+    8 × 8 × 2 otherwise; in ``"flat"`` tiles of 8 whole planes of the
+    batch's ``b · d``, in order, which may span batch elements), ``total``
+    (``b * tiles``; ``tiles`` in ``"flat"``), ``slices`` (Cin slices: two 32-channel chunks of the
+    segments in ``"halo"`` and ``"flat"``, the one chunk in ``"zstack"``),
+    ``bn`` (Cout columns of a block: 64 in ``"flat"``, else 32),
+    ``ctiles`` (Cout tiles of ``bn``), ``dz`` (blocks per (slice, Cout
+    tile): 3 in ``"halo"`` and ``"flat"``, one per dz plane of 9 taps; else
+    1), ``splits`` (contiguous ranges of the ``total`` tiles, one per block
+    row, none empty), ``per`` (tiles per split; the last split may hold
+    fewer) and ``blocks``. The grid reaches :data:`SMS` blocks whenever
+    ``dz · slices · ctiles · total`` does, at the cheapest split count by
+    the cost model; FLAT (one block per SM) takes as many splits as run in
+    one wave instead.
+    """
+    segs = tuple(int(c) for c in segs)
+    chunks = sum(_cdiv(c, 32) for c in segs)
+    vec = all(c % 8 == 0 for c in segs) and cout % 8 == 0
+    if segs == (1,):
+        mode = "panel"
+    elif vec and h * w == 16 and (h + 2) * w <= _DW_FLAT_PW:
+        mode = "flat"
+    elif chunks == 1 and segs[0] % 8 == 0:
+        mode = "zstack"
+    else:
+        mode = "halo"
+    if mode == "flat":  # tiles of the batch's planes, in order
+        tiles = total = _cdiv(b * d, _DW_ZT[mode])
+    else:
+        tiles = _cdiv(d, _DW_ZT[mode]) * _cdiv(h, 8) * _cdiv(w, 8)
+        total = b * tiles
+    bn = _DW_BN[mode]
+    ctiles = _cdiv(cout, bn)
+    slices = (1 if mode == "panel" else chunks if mode == "zstack"
+              else _cdiv(chunks, 2))
+    dz = 3 if mode in ("halo", "flat") else 1
+    base = dz * slices * ctiles
+    ws_split = 4 * 27 * sum(segs) * cout
+    slots = SMS * _DW_PER_SM[mode]
+    # More than eight waves only shortens the last one.
+    s_max = max(1, min(total, 65535, _DW_WS_CAP // ws_split,
+                       8 * slots // base))
+    best = None
+    for s in range(1, s_max + 1):
+        per = _cdiv(total, s)
+        s = _cdiv(total, per)  # no empty split
+        if mode == "flat":
+            # One block per SM: as many splits as run in one wave (a
+            # second wave costs a whole block; 4³ on an H100: 2 splits,
+            # 96 blocks, faster than 3 in two waves, PERF.md).
+            if s == 1 or base * s <= SMS:
+                best = (0.0, s, per)
+            continue
+        if base * s < min(SMS, base * s_max):  # the card could be filled
+            continue
+        cost = (_cdiv(base * s, slots) * per * _DW_TILE_US
+                + (s * ws_split / _DW_BYTES_PER_US if s > 1 else 0.0))
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    _, splits, per = best
+    return types.MappingProxyType({
+        "mode": mode, "tiles": tiles, "total": total, "slices": slices,
+        "bn": bn, "ctiles": ctiles, "dz": dz, "splits": splits, "per": per,
+        "blocks": base * splits})
 
 
-def _launch_dw(xs, g):
+def _dw_entry():
+    """The C entry point of ``csrc/nb_conv3d_dw.cu``, typed once."""
     from exaspim_tpu_torch.ops._build import load_library
 
+    fn = load_library("nb_conv3d_dw").nb_conv3d_dw_bf16
+    if fn.argtypes is None:
+        fn.argtypes = _DW_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_dw(xs, g, debug=0):
     _check_cuda((*xs, g), "dL/dW")
     b, d, h, w = g.shape[:4]
     cout = g.shape[-1]
-    if cout % 8:
-        raise ValueError(f"Cout must be a multiple of 8, got {cout}")
     if d * h * w >= 2 ** 31:
         raise ValueError("D·H·W must fit a 32-bit index")
-    segs = [x.shape[-1] for x in xs]
+    segs = tuple(x.shape[-1] for x in xs)
     cin = sum(segs)
-    splits = _dw_splits(b * d * h * w, segs, cout)
-    ws = torch.empty((splits, 27, cin, cout), dtype=torch.float32,
-                     device=g.device)
+    plan = _dw_plan(b, d, h, w, segs, cout)
     out = torch.empty((27, cin, cout), dtype=torch.float32, device=g.device)
-    fn = load_library("nb_conv3d_dw").nb_conv3d_dw_bf16
-    fn.argtypes = _DW_ARGTYPES
-    fn.restype = ctypes.c_int
+    ws = None if plan["splits"] == 1 else torch.empty(
+        (plan["splits"] - 1, 27, cin, cout), dtype=torch.float32,
+        device=g.device)
+    fn = _dw_entry()
     xa = xs[0]
     xb = xs[1] if len(xs) > 1 else None
     with torch.cuda.device(g.device):
@@ -357,7 +443,10 @@ def _launch_dw(xs, g):
         rc = fn(
             xa.data_ptr(), None if xb is None else xb.data_ptr(),
             segs[0], 0 if xb is None else segs[1], g.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), b, d, h, w, cout, splits, stream,
+            None if ws is None else ws.data_ptr(), out.data_ptr(), b, d, h,
+            w, cout,
+            _DW_MODES[plan["mode"]], plan["splits"], plan["per"],
+            int(debug), stream,
         )
     if rc != 0:
         raise RuntimeError(

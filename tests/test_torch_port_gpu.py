@@ -12,6 +12,12 @@ import torch
 from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_stats
 
 
+# dL/dW against its f32 plain version: both sum exact bf16 products in f32,
+# in different orders; |Δ| within DW_RTOL of the contraction over |x|, |g|
+# (chip_smoke.py's limit, set between the sound and the faulty readings).
+DW_RTOL = 1e-5
+
+
 def _rand(rng, shape, scale=1.0):
     return (rng.normal(size=shape) * scale).astype(np.float32)
 
@@ -84,7 +90,7 @@ def test_dw_kernel_matches_plain(segs, cout, n, b):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     # Exact bf16 products summed in f32 in two orders.
-    assert ((got - ref).abs() <= 1e-3 * scale).all()
+    assert ((got - ref).abs() <= DW_RTOL * scale).all()
 
 
 @pytest.mark.gpu
@@ -413,3 +419,121 @@ def test_conv_kernel_batch_slot_independent(b, ext, segs, cout):
     ys, t1, t2 = nb_conv3d_stats(tuple(x[1:3].clone() for x in xs), k)
     assert torch.equal(ys, y[1:3])
     assert torch.equal(t1, s1[1:3]) and torch.equal(t2, s2[1:3])
+
+
+def _dw_inputs(rng, b, ext, segs, cout):
+    xs = tuple(torch.from_numpy(_rand(rng, (b, *ext, c))).to(
+        "cuda", torch.bfloat16) for c in segs)
+    g = torch.from_numpy(_rand(rng, (b, *ext, cout), 0.1)).to(
+        "cuda", torch.bfloat16)
+    return xs, g
+
+
+def _dw_reference(xs, g):
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw_plain
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return (nb_conv3d_dw_plain(xs, g),
+                nb_conv3d_dw_plain(tuple(x.abs() for x in xs), g.abs()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+# (B, (D, H, W), segments, Cout): each mode of csrc/nb_conv3d_dw.cu (panel,
+# zstack for one chunk of at most 32 channels, halo with one or two chunks
+# per Cin slice, two segments, three slices, flat for planes of 16 voxels:
+# 4^3 of a training step, 8 x 2 and 16 x 1 planes with a partial last tile,
+# a part chunk and a half-empty Cout pair), extents no multiple of the
+# 8 x 8 x 4 tile, and widths that are no multiple of 8 (x and g staged
+# with element loads, g rows not 16-byte aligned; 4^3 at such widths runs
+# halo, whose empty rows are skipped).
+_DW_SHAPES = [(2, (16, 16, 16), (1,), 32), (2, (12, 12, 12), (32,), 32),
+              (2, (9, 11, 13), (64,), 64), (2, (8, 8, 8), (32, 32), 96),
+              (3, (4, 4, 4), (128, 64), 256), (2, (6, 6, 6), (256,), 32),
+              (2, (5, 7, 9), (19, 19), 9), (2, (8, 8, 8), (9,), 19),
+              (2, (7, 7, 7), (1,), 9), (1, (3, 17, 10), (40, 24), 48),
+              (4, (2, 3, 2), (8,), 8), (2, (6, 10, 9), (24,), 40),
+              (4, (4, 4, 4), (256,), 256), (2, (7, 8, 2), (40,), 24),
+              (5, (3, 16, 1), (8, 16), 8), (2, (4, 4, 4), (76,), 76)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ext,segs,cout", _DW_SHAPES, ids=str)
+def test_dw_kernel_modes_and_widths_match_plain(b, ext, segs, cout):
+    _card()
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw
+
+    xs, g = _dw_inputs(np.random.default_rng(14), b, ext, segs, cout)
+    before = nb_conv3d_dw.launches
+    got = nb_conv3d_dw(xs, g)
+    assert nb_conv3d_dw.launches == before + 1
+    assert torch.equal(got, nb_conv3d_dw(xs, g))  # fixed-order split-K
+    ref, scale = _dw_reference(xs, g)
+    # Exact bf16 products summed in f32 in two orders.
+    assert ((got - ref).abs() <= DW_RTOL * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ext,segs,cout", [_DW_SHAPES[i] for i in
+                                             (0, 1, 3, 4, 13)], ids=str)
+def test_dw_kernel_planted_fault_is_caught(b, ext, segs, cout):
+    _card()
+    from exaspim_tpu_torch.ops import nb_conv as nc
+
+    xs, g = _dw_inputs(np.random.default_rng(15), b, ext, segs, cout)
+    ref, scale = _dw_reference(xs, g)
+    good = nc._launch_dw(xs, g)
+    bad = nc._launch_dw(xs, g, debug=1)  # tap 0 reads tap 1's view
+    assert ((good - ref).abs() <= DW_RTOL * scale).all()
+    assert ((bad - ref).abs() > DW_RTOL * scale).any()
+
+
+# Widths of build_model({"width_multiplier": 0.3}) (stages 9, 19, 38, 76),
+# none a multiple of 8 but 76's input: the forward with statistics, dL/dx
+# (the forward on the transposed taps, Cout = Cin) and dL/dW on the card.
+_ODD_WIDTHS = [((1,), 9), ((9,), 9), ((9,), 19), ((19, 19), 19),
+               ((19,), 38), ((38,), 76), ((76, 76), 76), ((9,), 76)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segs,cout", _ODD_WIDTHS, ids=str)
+def test_conv_any_width_on_the_kernels(segs, cout):
+    _card()
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw, nb_conv3d_plain
+
+    rng = np.random.default_rng(16)
+    xs, k = _conv_inputs(rng, 2, (8, 12, 10), segs, cout)
+    gy = torch.from_numpy(_rand(rng, (2, 8, 12, 10, cout), 0.1)).to(
+        "cuda", torch.bfloat16)
+    counts = nb_conv3d.launches, nb_conv3d_dw.launches
+    xr = tuple(x.clone().requires_grad_() for x in xs)
+    kr = k.clone().requires_grad_()
+    y, s1, s2 = nb_conv3d_stats(xr, kr)
+    y.backward(gy)
+    # Forward and dL/dx on the conv kernel, dL/dW on the dL/dW kernel.
+    assert (nb_conv3d.launches, nb_conv3d_dw.launches) == (
+        counts[0] + 2, counts[1] + 1)
+    assert y.shape == (2, 8, 12, 10, cout) and s1.shape == (2, cout)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        py = nb_conv3d_plain(xs, k)
+        xp = tuple(x.float().requires_grad_() for x in xs)
+        kp = k.float().requires_grad_()
+        nb_conv3d_plain(xp, kp).backward(gy.float())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = (y.float() - py.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * py.float().abs().max().item()
+    yf = y.float()
+    assert ((s1 - yf.sum((1, 2, 3))).abs()
+            <= 1e-3 * yf.abs().sum((1, 2, 3))).all()
+    torch.testing.assert_close(s2, (yf * yf).sum((1, 2, 3)), rtol=1e-3,
+                               atol=0)
+    # bf16 results of f32 sums against f32: relative L2 within 2^-8.
+    grads = [(kr.grad, kp.grad)] + [(a.grad, b.grad) for a, b in zip(xr, xp)]
+    for got, want in grads:
+        rel = (got.float() - want).norm() / want.norm()
+        assert rel.item() <= 2.0 ** -8

@@ -199,3 +199,65 @@ def test_fixed_order_stats_model_matches_plain(shape):
     scale = yf.abs().sum(1)
     assert float(((m1 - s1).abs() / scale).max()) < 1e-5
     assert float(((m2 - s2).abs() / s2).max()) < 1e-5
+
+
+# The dL/dW plan of csrc/nb_conv3d_dw.cu: every conv of one training step
+# (B = 32 of 64³), the odd widths of width 0.3, and small or ragged volumes.
+def _dw_plan_shapes():
+    from exaspim_tpu_torch.ops.nb_bench import unet_dw_shapes
+
+    shapes = {(32, n, n, n, segs, cout) for n, segs, cout
+              in unet_dw_shapes(64)}
+    shapes |= {(2, n, n, n, segs, cout) for n, segs, cout
+               in unet_dw_shapes(32, width=0.3)}
+    shapes |= {(2, 12, 12, 12, (1,), 32), (2, 9, 11, 13, (64,), 64),
+               (3, 4, 4, 4, (128, 64), 256), (1, 3, 17, 10, (40, 24), 48),
+               (4, 2, 3, 2, (8,), 8), (2, 5, 7, 9, (19, 19), 9),
+               (2, 7, 8, 2, (40,), 24), (5, 3, 16, 1, (8, 16), 8),
+               (2, 6, 4, 4, (32,), 9), (2, 4, 2, 8, (64,), 64)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("shape", _dw_plan_shapes(), ids=str)
+def test_dw_plan_covers_every_tile_once_and_fills_the_card(shape):
+    from exaspim_tpu_torch.ops.nb_conv import SMS, _cdiv, _dw_plan
+
+    b, d, h, w, segs, cout = shape
+    plan = _dw_plan(b, d, h, w, segs, cout)
+    chunks = sum(_cdiv(c, 32) for c in segs)
+    vec = all(c % 8 == 0 for c in segs) and cout % 8 == 0
+    # FLAT: whole planes of 16 voxels, no padded K row (4³ of a step).
+    flat = segs != (1,) and vec and h * w == 16 and (h + 2) * w <= 24
+    zstack = not flat and chunks == 1 and segs[0] % 8 == 0
+    assert plan["mode"] == ("panel" if segs == (1,) else "flat" if flat
+                            else "zstack" if zstack else "halo")
+    if flat:  # tiles of eight planes of the batch, across its elements
+        assert plan["tiles"] == plan["total"] == _cdiv(b * d, 8)
+    else:
+        zt = 4 if segs == (1,) else 2
+        assert plan["tiles"] == _cdiv(d, zt) * _cdiv(h, 8) * _cdiv(w, 8)
+        assert plan["total"] == b * plan["tiles"]
+    # Split s walks tiles [s·per, min((s+1)·per, total)): together every
+    # tile once, and no split empty (each writes its workspace slice).
+    spans = [range(s * plan["per"], min((s + 1) * plan["per"], plan["total"]))
+             for s in range(plan["splits"])]
+    assert all(len(r) > 0 for r in spans)
+    assert [t for r in spans for t in r] == list(range(plan["total"]))
+    assert plan["splits"] <= 65535
+    slices = 1 if segs == (1,) else chunks if zstack else _cdiv(chunks, 2)
+    # HALO, FLAT: a block per dz plane; FLAT's blocks take 64 columns.
+    dz = 3 if plan["mode"] in ("halo", "flat") else 1
+    bn = 64 if flat else 32
+    assert (plan["slices"], plan["bn"], plan["ctiles"], plan["dz"]) == (
+        slices, bn, _cdiv(cout, bn), dz)
+    base = dz * slices * plan["ctiles"]
+    assert plan["blocks"] == base * plan["splits"]
+    if flat:  # one block per SM: as many splits as run in one wave
+        s = plan["splits"]
+        assert s == 1 or plan["blocks"] <= SMS
+        assert s == plan["total"] or base * (s + 1) > SMS or _cdiv(
+            plan["total"], _cdiv(plan["total"], s + 1)) == s
+    else:
+        assert plan["blocks"] >= min(SMS, base * plan["total"])
+    # Deterministic: the same plan from a fresh computation.
+    assert dict(_dw_plan.__wrapped__(b, d, h, w, segs, cout)) == dict(plan)

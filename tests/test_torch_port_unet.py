@@ -49,6 +49,25 @@ def test_unet_forward_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+def test_unet_width_0_3_forward_matches_jax():
+    """``width_multiplier=0.3``: stages 9, 19, 38, 76 (and 153 // 2 = 76),
+    widths that are no multiple of 8 (the reference sends them to the XLA
+    conv; the port's kernels take them on the card, the plain conv here).
+    Same numpy-seeded input, JAX-initialised params, tolerance as above."""
+    kw = dict(width_multiplier=0.3, head_init="normal")
+    jm = JaxUNet(**kw)
+    x = np.random.default_rng(3).normal(0.5, 0.2, (1, 16, 16, 16, 1)).astype(
+        np.float32)
+    params = jm.init(jax.random.key(3), jnp.asarray(x))["params"]
+    widths = sorted({v.shape[-1] for v in jax.tree.leaves(params)
+                     if v.ndim == 5})
+    assert widths == [1, 9, 19, 38, 76]  # 1: the 1x1x1 head
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = _port(params, **kw)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
 def test_fused_stats_group_norm_equals_unfused_and_flax():
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(2, 4, 8, 8, 16)).astype(np.float32))
