@@ -61,16 +61,23 @@ line:
     updated) and ``predict`` of a 48³ phantom block (linear transform)
     against the plain path on the card in bf16 and the f32 CPU path, every
     conv counted on the kernels;
-11. BM4D matching kernels vs plain at the default parameters (block 4,
-    step 3, search 9, group 16): the distance table and the selected
-    starts on a 64³ raw patch, on its stage-1 estimate and on a 128³
-    volume (padded to 130³), each kernel timed beside its plain version
-    and the card's bound, the selection also beside one ``torch.topk``;
+11. BM4D matching vs plain at the default parameters (block 4, step 3,
+    search 9, group 16): the fused kernel's starts (``match_topk``, one
+    launch) equal to the plain version's, member 0 the reference, on a
+    64³ raw patch, on its stage-1 estimate, on a 128³ volume (padded to
+    130³) and on a batch of three 64³ patches; on the three volumes also
+    its two halves alone, the distance table (bit-equal) and the
+    selection over it; each timed beside its plain version and the
+    card's bound, the selection also beside one ``torch.topk``; then the
+    fused kernel's ms per patch in the teacher path's batches of 8;
 12. teacher path: ``precompute(split="val", n=16)`` at its defaults writes
-    a cache of 64³ patches with BM4D teachers; launches counted, the
-    cache reopened, teachers held against the clean phantoms, patch 0
-    against the CPU path and against a second run on the card, then
-    seconds per patch and a profile of one ``bm4d`` call;
+    a cache of 64³ patches with BM4D teachers; launches counted (one
+    fused launch per stage of a batch of 8: 4), the cache reopened,
+    teachers held against the clean phantoms and against per-volume
+    ``bm4d`` of each patch, two card runs (a batch, and patch 0 alone)
+    bit-equal, patch 0 against the CPU path, then ``bm4d_batch`` seconds
+    per patch in batches of 8 and a profile of one such call (its idle
+    share);
 13. asinh kernels vs plain on the 256³ block of phase 4 (uint16 → f32 and
     back), beside ``AsinhTransform`` and the bytes bound;
 14. blocked conv vs plain: ``blocked_conv3d`` (the shared-memory halo-tile
@@ -93,7 +100,8 @@ line:
 17. evaluation: with an exact codec, ``SupervisedEvaluator.run`` on two
     128³ crops and ``UnsupervisedEvaluator.run`` on four 64³ voxels;
     without one, the codec-free half on the same four voxels (BM4D ground
-    truth, ``predict_patch``, SSIM, MAE, L∞); matcher launches counted.
+    truth, ``predict_patch``, SSIM, MAE, L∞); fused matcher launches
+    counted (two per ground truth).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -171,11 +179,12 @@ N_TEACHERS, TEACHER_SEED = 16, 42
 # The match kernel and its plain version do the same f32 operations in the
 # same order, so the tables are expected bit-equal; an entry may differ by
 # one bf16 ulp only where a compiler reorders an f32 sum across a rounding
-# boundary.
+# boundary. The fused kernel's starts must equal the plain version's.
 TABLE_MAX_ULPS = 1
-# Card vs CPU teacher: the groups are equal; f32 sums in another order may
-# flip a coefficient at the 2.7 sigma threshold or a count at a .5
-# boundary.
+# Card vs CPU teacher, and batched vs per-volume teachers on the card: the
+# groups are equal; f32 sums in another order (the CPU's, or a library
+# call's at another batch size) may flip a coefficient at the 2.7 sigma
+# threshold or a count at a .5 boundary.
 TEACHER_MAX_COUNTS, TEACHER_MAX_SHARE = 1, 1e-3
 # asinh forward vs the plain log form: logf and sqrtf against torch's, a
 # few f32 ulps; against AsinhTransform (true asinh) the log-form identity.
@@ -1066,34 +1075,24 @@ def width_path(train_dir, transform_cfg):
     return rec
 
 
-def match_operations(shape, grid):
-    """f32 operations the distance table needs when nothing is computed
-    twice, at the rounding points and in the summation order of the
-    function: a squared difference (subtract, multiply) once per unordered
-    voxel pair within the window (the pair of Δ is the pair of −Δ seen from
-    the other voxel, and a reflected neighbour is an in-volume one), then
-    per offset the three strided box sums of B−1 adds each, over z on every
-    (y, x) column, over y on the reference rows, over x on the references."""
-    Z, Y, X = shape
-    gz, gy, gx = grid
-    w3 = BM_W ** 3
-    squares = 2.0 * Z * Y * X * (w3 - 1) / 2
-    sums = (BM_B - 1.0) * w3 * (gz * Y * X + gz * gy * X + gz * gy * gx)
-    return squares + sums
-
-
 def check_matching(name, vol):
-    """Phase 11 on one volume: the match and select kernels against their
-    plain versions on the card. Returns their two records."""
+    """Phase 11 on one volume: the fused kernel's starts against the plain
+    version's, then its two halves (the table instance, the selection over
+    that table) against theirs, each timed beside its plain version, the
+    bound and, for the selection, one ``torch.topk``. Returns the fused
+    and the selection records."""
     import torch
 
     from exaspim_tpu_torch.ops import bm4d_match as tm
+    from exaspim_tpu_torch.ops.match_bench import bound_ms
 
     g = torch.as_tensor(vol, dtype=torch.float32, device="cuda")
     grid = tm.grid_shape(g.shape, BM_B, BM_STEP)
     refs = grid[0] * grid[1] * grid[2]
-    table = tm.match_distances(g, BM_B, BM_STEP, BM_W)
-    plain = tm.match_distances_plain(g, BM_B, BM_STEP, BM_W)
+    kw = dict(block=BM_B, step=BM_STEP, search=BM_W)
+    fused_err = check_fused(name, g)
+    table = tm.match_distances(g, **kw)
+    plain = tm.match_distances_plain(g, **kw)
     torch.cuda.synchronize()
     # Non-negative bf16 values order as their bits: the gap in ulps.
     ulps = (table.view(torch.int16).int() - plain.view(torch.int16).int()).abs()
@@ -1103,78 +1102,119 @@ def check_matching(name, vol):
         fail(f"bm4d_match {name}: table off by {worst} bf16 ulps "
              f"(share {share:.3e}, limit {TABLE_MAX_ULPS})")
     del plain, ulps
-    starts = tm.select_topk(table, grid, BM_K, BM_STEP, BM_W)
-    want = tm.select_topk_plain(table, grid, BM_K, BM_STEP, BM_W)
+    sel = (grid, BM_K, BM_STEP, BM_W)
+    starts = tm.select_topk(table, *sel)
+    want = tm.select_topk_plain(table, *sel)
     torch.cuda.synchronize()
     sel_err = max(int((a - b).abs().max()) for a, b in zip(starts, want))
     if sel_err:
         fail(f"bm4d_select {name}: starts differ from the plain version on "
              f"the kernel's own table (max {sel_err})")
-    r = torch.arange(refs, device="cuda", dtype=torch.int32)
-    ref_grid = (BM_STEP * (r // (grid[1] * grid[2])),
-                BM_STEP * ((r // grid[2]) % grid[1]), BM_STEP * (r % grid[2]))
-    if not all(torch.equal(s[:, 0], w) for s, w in zip(starts, ref_grid)):
-        fail(f"bm4d_select {name}: member 0 is not the reference itself")
     del starts, want
 
     w3 = BM_W ** 3
-    m_ms = cuda_ms(lambda: tm.match_distances(g, BM_B, BM_STEP, BM_W), 20)
-    m_plain = cuda_ms(
-        lambda: tm.match_distances_plain(g, BM_B, BM_STEP, BM_W), 2)
-    s_ms = cuda_ms(
-        lambda: tm.select_topk(table, grid, BM_K, BM_STEP, BM_W), 20)
-    s_plain = cuda_ms(
-        lambda: tm.select_topk_plain(table, grid, BM_K, BM_STEP, BM_W), 3)
+    f_ms = cuda_ms(lambda: tm.match_topk(g, BM_B, BM_K, BM_STEP, BM_W), 20)
+    f_plain = cuda_ms(lambda: tm.match_topk_plain(
+        g, BM_B, BM_K, BM_STEP, BM_W), 2)
+    m_ms = cuda_ms(lambda: tm.match_distances(g, **kw), 20)
+    m_plain = cuda_ms(lambda: tm.match_distances_plain(g, **kw), 2)
+    s_ms = cuda_ms(lambda: tm.select_topk(table, *sel), 20)
+    s_plain = cuda_ms(lambda: tm.select_topk_plain(table, *sel), 3)
     keys = tm._keys(table, BM_W)
     s_lib = cuda_ms(lambda: torch.topk(keys, BM_K, dim=1, largest=False), 5)
-    del keys
+    del keys, table
     # No matrix product is in the function: the FP32 vector peak applies,
-    # to the operations of the separable evaluation (shared squared
-    # differences, box sums axis by axis), not to the kernel's own
-    # 3·B³ per entry.
-    match = {"shape": name, "refs": refs, "max_abs_err": err,
-             "differ_share": share, "max_ulps": worst, "ms": m_ms,
-             "plain_ms": m_plain, "library_ms": None,
-             **bound(match_operations(g.shape, grid),
-                     4 * g.numel() + 2 * refs * w3, PEAK_F32_FLOPS)}
+    # to the operations of the separable evaluation (match_bench.
+    # match_operations); the bytes are the guide read once and the starts
+    # written once.
+    b_ms, b_by = bound_ms(tuple(g.shape), grid, BM_K)
+    fused = {"shape": name, "refs": refs, "max_abs_err": float(fused_err),
+             "ms": f_ms, "plain_ms": f_plain, "library_ms": None,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "table_ms": m_ms, "table_plain_ms": m_plain,
+             "table_max_abs_err": err, "table_differ_share": share,
+             "table_max_ulps": worst}
     select = {"shape": name, "refs": refs, "max_abs_err": float(sel_err),
               "ms": s_ms, "plain_ms": s_plain, "library_ms": s_lib,
               **bound(0.0, 2 * refs * w3 + 3 * 4 * refs * BM_K)}
-    print(f"{name}: {refs} refs x {w3} offsets; table differs from plain on "
+    print(f"{name}: {refs} refs x {w3} offsets\n  fused (match_topk, one "
+          f"launch) kernel_ms={f_ms:.4f} plain_ms={f_plain:.4f} bound_ms="
+          f"{b_ms:.4f} ({b_by})\n  table instance: differs from plain on "
           f"share {share:.3e} of entries, worst {worst} bf16 ulps (limit "
-          f"{TABLE_MAX_ULPS}), max|d|={err:.3e}; starts equal on the kernel's "
-          f"table, member 0 = reference\n  bm4d_match  kernel_ms={m_ms:.4f} "
-          f"plain_ms={m_plain:.4f} bound_ms={match['bound_ms']:.4f} "
-          f"({match['bound_by']})\n  bm4d_select kernel_ms={s_ms:.4f} "
-          f"plain_ms={s_plain:.4f} library_ms={s_lib:.4f} (one torch.topk) "
-          f"bound_ms={select['bound_ms']:.4f} ({select['bound_by']})",
+          f"{TABLE_MAX_ULPS}), max|d|={err:.3e}; kernel_ms={m_ms:.4f} "
+          f"plain_ms={m_plain:.4f}\n  selection (bm4d_select on that "
+          f"table): starts equal; kernel_ms={s_ms:.4f} plain_ms="
+          f"{s_plain:.4f} library_ms={s_lib:.4f} (one torch.topk) bound_ms="
+          f"{select['bound_ms']:.4f} ({select['bound_by']})", flush=True)
+    return fused, select
+
+
+def check_fused(name, g):
+    """The fused kernel on a guide or a batch of guides against
+    select_topk_plain(match_distances_plain(.)) on the card: the starts
+    must be equal, member 0 the reference itself. Returns max |Δ|."""
+    import torch
+
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+
+    starts = tm.match_topk(g, BM_B, BM_K, BM_STEP, BM_W)
+    want = tm.match_topk_plain(g, BM_B, BM_K, BM_STEP, BM_W)
+    torch.cuda.synchronize()
+    err = max(int((a - b).abs().max()) for a, b in zip(starts, want))
+    if err or any(a.shape != b.shape for a, b in zip(starts, want)):
+        fail(f"fused matcher {name}: starts differ from the plain version "
+             f"(max {err})")
+    grid = tm.grid_shape(g.shape[-3:], BM_B, BM_STEP)
+    r = torch.arange(grid[0] * grid[1] * grid[2], device="cuda",
+                     dtype=torch.int32)
+    ref_grid = (BM_STEP * (r // (grid[1] * grid[2])),
+                BM_STEP * ((r // grid[2]) % grid[1]), BM_STEP * (r % grid[2]))
+    if not all(torch.equal(s[..., 0], w.expand_as(s[..., 0]))
+               for s, w in zip(starts, ref_grid)):
+        fail(f"fused matcher {name}: member 0 is not the reference itself")
+    print(f"{name}: fused starts {tuple(starts[0].shape)} x 3 equal the "
+          f"plain version's (max |d| {err}); member 0 = reference",
           flush=True)
-    return match, select
+    return err
 
 
 def matching_kernels():
-    """Phase 11 on three volumes; returns the records of the two 64³ ones
-    (what one patch of the teacher path gives the kernels) and of the
-    130³ one."""
+    """Phase 11: three volumes and a batch of three 64³ patches; then the
+    fused kernel's time per patch on the teacher path's batches (eight 64³
+    patches, each stage one launch). Returns the records."""
     import torch
 
+    from exaspim_tpu_torch.data.precompute import TEACHER_BATCH
     from exaspim_tpu_torch.data.synthetic import (
         SyntheticPatchDataset,
         neurite_phantom,
         noisy_observation,
     )
-    from exaspim_tpu_torch.ops.bm4d import bm4d
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+    from exaspim_tpu_torch.ops.bm4d import bm4d_batch
 
-    raw, _ = SyntheticPatchDataset(n=1, seed=TEACHER_SEED).raw_and_fg(0)
-    raw = raw.astype(np.float32)
-    basic = bm4d(raw, BM_SIGMA, two_stage=False)  # smooth: ties everywhere
+    ds = SyntheticPatchDataset(n=TEACHER_BATCH, seed=TEACHER_SEED)
+    raws = np.stack([ds.raw_and_fg(i)[0] for i in range(TEACHER_BATCH)])
+    raws = torch.from_numpy(raws.astype(np.float32)).cuda()
+    # Stage-1 estimates: smooth, ties everywhere.
+    basics = bm4d_batch(raws, BM_SIGMA, two_stage=False)
     big = noisy_observation(neurite_phantom((128,) * 3, seed=0)[0], seed=1)
     big = np.pad(big.astype(np.float32), [(0, 2)] * 3, mode="reflect")
-    recs = [check_matching("64^3 raw patch", raw),
-            check_matching("64^3 stage-1 estimate", basic),
+    recs = [check_matching("64^3 raw patch", raws[0]),
+            check_matching("64^3 stage-1 estimate", basics[0]),
             check_matching("130^3 volume", big)]
+    batch_err = check_fused("batch of three 64^3 patches", raws[:3])
+    # The path's shape: a stage of TEACHER_BATCH patches is one launch.
+    path = [cuda_ms(lambda v=v: tm.match_topk(v, BM_B, BM_K, BM_STEP, BM_W),
+                    20) / TEACHER_BATCH for v in (raws, basics)]
+    print(f"fused kernel in batches of {TEACHER_BATCH} (the teacher path): "
+          f"{path[0]:.4f} ms per raw patch, {path[1]:.4f} per stage-1 "
+          f"estimate, {sum(path):.4f} per patch (two stages); one guide at "
+          f"a time {recs[0][0]['ms'] + recs[1][0]['ms']:.4f}", flush=True)
+    del raws, basics
     torch.cuda.empty_cache()
-    return {"match": [r[0] for r in recs], "select": [r[1] for r in recs]}
+    return {"fused": [r[0] for r in recs], "select": [r[1] for r in recs],
+            "batch_max_abs_err": batch_err, "path_ms": path}
 
 
 def teacher_path():
@@ -1184,24 +1224,31 @@ def teacher_path():
     from scipy import ndimage
 
     from exaspim_tpu_torch.data.cache import CachedValidateDataset
-    from exaspim_tpu_torch.data.precompute import SEED_STREAMS, precompute
+    from exaspim_tpu_torch.data.precompute import (
+        SEED_STREAMS,
+        TEACHER_BATCH,
+        precompute,
+    )
     from exaspim_tpu_torch.data.synthetic import neurite_phantom
+    from exaspim_tpu_torch.ops import bm4d_match as tm
     from exaspim_tpu_torch.ops.bm4d import bm4d, bm4d_batch
-    from exaspim_tpu_torch.ops.bm4d_match import match_distances, select_topk
 
     out = os.path.join(WORK, "teachers")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    match_distances.launches = select_topk.launches = 0
+    counters = (tm.match_topk, tm.match_distances, tm.select_topk)
+    for fn in counters:
+        fn.launches = 0
     t0 = time.perf_counter()
     precompute(out, split="val", source="synthetic", n=N_TEACHERS,
                seed=TEACHER_SEED, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"bm4d_match": match_distances.launches,
-                "bm4d_select": select_topk.launches}
+    launches = {fn.__name__: fn.launches for fn in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"bm4d_match": 2 * N_TEACHERS, "bm4d_select": 2 * N_TEACHERS}
+    # Two stages per bm4d_batch call, one call per TEACHER_BATCH patches.
+    want = {"match_topk": 2 * -(-N_TEACHERS // TEACHER_BATCH),
+            "match_distances": 0, "select_topk": 0}
     print(f"precompute(): {N_TEACHERS} patches of {PATCH}^3 in {wall:.3f} s "
           f"({wall / N_TEACHERS:.4f} s per patch, phantom synthesis on the "
           f"host included); launches {launches} (expected {want}); peak "
@@ -1240,50 +1287,78 @@ def teacher_path():
         fail(f"the teachers ({e_teacher}) do not beat the raw patches "
              f"({e_raw}) against the clean phantoms")
 
-    # Patch 0: two more runs on the card, and the CPU path (plain versions).
-    vol = raws[0].astype(np.float32)
-    first, again = bm4d(vol, BM_SIGMA), bm4d(vol, BM_SIGMA)
+    def counts(t):
+        return np.clip(np.round(t.cpu().numpy()), 0, 65535)
+
+    # Batched (the cache) vs per-volume teachers: the volumes share no
+    # rows, but the batched patch conv may sum in another order.
+    f32 = raws.astype(np.float32)
+    single = np.stack([counts(bm4d(v, BM_SIGMA)) for v in f32])
+    d = np.abs(single - teachers)
+    bit_equal = int(sum(np.array_equal(a, b)
+                        for a, b in zip(single, teachers)))
+    vs_single = {"max": float(d.max()), "share": float((d > 0).mean()),
+                 "bit_equal_patches": bit_equal}
+    print(f"batched vs per-volume teachers: {bit_equal} of {N_TEACHERS} "
+          f"patches bit-equal; max {d.max():.0f} count(s) on share "
+          f"{vs_single['share']:.3e} of voxels (limits "
+          f"{TEACHER_MAX_COUNTS}, {TEACHER_MAX_SHARE})", flush=True)
+    if d.max() > TEACHER_MAX_COUNTS or vs_single["share"] > TEACHER_MAX_SHARE:
+        fail("the batched teachers stray from the per-volume ones")
+
+    # Two card runs of a batch, and of patch 0 alone, bit-equal; patch 0
+    # against the CPU path (plain versions).
+    first = bm4d_batch(f32[:TEACHER_BATCH], BM_SIGMA)
+    again = bm4d_batch(f32[:TEACHER_BATCH], BM_SIGMA)
+    one, one_again = bm4d(f32[0], BM_SIGMA), bm4d(f32[0], BM_SIGMA)
     torch.cuda.synchronize()
-    card = np.clip(np.round(first.cpu().numpy()), 0, 65535).astype(np.uint16)
-    if not torch.equal(first, again) or not np.array_equal(card, teachers[0]):
-        fail("two card runs of patch 0 differ: the teacher depends on "
-             "scheduling")
+    if not torch.equal(first, again) or not torch.equal(one, one_again) \
+            or not np.array_equal(counts(first), teachers[:TEACHER_BATCH]):
+        fail("two card runs differ: the teacher depends on scheduling")
     t0 = time.perf_counter()
-    cpu = bm4d(vol, BM_SIGMA, device="cpu").numpy()
+    cpu = bm4d(f32[0], BM_SIGMA, device="cpu").numpy()
     cpu_s = time.perf_counter() - t0
-    d = np.abs(np.round(first.cpu().numpy()) - np.round(cpu))
+    d = np.abs(np.round(one.cpu().numpy()) - np.round(cpu))
     share = float((d > 0).mean())
-    print(f"patch 0: two card runs bit-equal; card vs CPU (plain versions, "
-          f"{cpu_s:.2f} s): max {d.max():.0f} count(s) on share {share:.3e} "
-          f"of voxels (limits {TEACHER_MAX_COUNTS}, {TEACHER_MAX_SHARE})",
-          flush=True)
+    print(f"two card runs bit-equal (a batch of {TEACHER_BATCH}, and patch 0 "
+          f"alone); patch 0 card vs CPU (plain versions, {cpu_s:.2f} s): "
+          f"max {d.max():.0f} count(s) on share {share:.3e} of voxels "
+          f"(limits {TEACHER_MAX_COUNTS}, {TEACHER_MAX_SHARE})", flush=True)
     if d.max() > TEACHER_MAX_COUNTS or share > TEACHER_MAX_SHARE:
         fail("the card's teacher strays from the CPU path")
 
-    # The teachers alone (no phantom synthesis, no cache writes).
-    f32 = raws.astype(np.float32)
+    # The teachers alone (no phantom synthesis, no cache writes), in the
+    # path's batches.
+    def run_all():
+        for lo in range(0, N_TEACHERS, TEACHER_BATCH):
+            bm4d_batch(f32[lo:lo + TEACHER_BATCH], BM_SIGMA,
+                       step=BM_STEP).cpu()
+
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bm4d_batch(f32, BM_SIGMA, step=BM_STEP).cpu()
+        run_all()
         times.append((time.perf_counter() - t0) / N_TEACHERS)
     sec = float(np.median(times))
-    print(f"bm4d_batch of {N_TEACHERS}: seconds per patch {times} (median "
-          f"{sec:.5f}); {1 / sec:.2f} patches/s, {PATCH ** 3 / sec:.1f} "
-          f"voxels/s", flush=True)
+    print(f"bm4d_batch in batches of {TEACHER_BATCH}: seconds per patch "
+          f"{times} (median {sec:.5f}); {1 / sec:.2f} patches/s, "
+          f"{PATCH ** 3 / sec:.1f} voxels/s", flush=True)
 
-    phase("teacher path: profile of one bm4d call")
-    prof = profile_once(lambda: bm4d(vol, BM_SIGMA), key="bm4d_", warm=True)
-    # Two stages: the profile must hold what the counters saw, 2 + 2.
-    if prof is not None and prof["key_launches"] != 4:
-        fail(f"the profile of one bm4d call lists {prof['key_launches']} "
-             "launches of the matching kernels, the call makes 4")
+    phase(f"teacher path: profile of one bm4d_batch call ({TEACHER_BATCH} "
+          "patches)")
+    prof = profile_once(lambda: bm4d_batch(f32[:TEACHER_BATCH], BM_SIGMA),
+                        key="bm4d_match_kernel", warm=True)
+    # Two stages: the profile must hold what the counters saw, 1 + 1.
+    if prof is not None and prof["key_launches"] != 2:
+        fail(f"the profile of one bm4d_batch call lists "
+             f"{prof['key_launches']} launches of the matching kernel, the "
+             "call makes 2")
     return {"wall_s": wall, "launches": launches, "peak_mem_gb": peak_gb,
             "rmse_raw": e_raw, "rmse_teacher": e_teacher,
-            "rmse_gauss": e_gauss, "card_vs_cpu_max": float(d.max()),
-            "card_vs_cpu_share": share, "cpu_s": cpu_s,
-            "seconds_per_patch": sec, "patch_s": times,
+            "rmse_gauss": e_gauss, "batched_vs_single": vs_single,
+            "card_vs_cpu_max": float(d.max()), "card_vs_cpu_share": share,
+            "cpu_s": cpu_s, "seconds_per_patch": sec, "patch_s": times,
             "voxels_per_s": PATCH ** 3 / sec, "profile": prof}
 
 
@@ -1724,7 +1799,7 @@ def evaluation_path(img, clean, ckpt):
     from exaspim_tpu_torch import evaluate as ev
     from exaspim_tpu_torch.compression import best_codec
     from exaspim_tpu_torch.inference import predict_patch
-    from exaspim_tpu_torch.ops.bm4d_match import match_distances, select_topk
+    from exaspim_tpu_torch.ops import bm4d_match as tm
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
     voxels, side, crop, dtype = EVAL_VOXELS, PATCH, 128, torch.bfloat16
@@ -1746,7 +1821,9 @@ def evaluation_path(img, clean, ckpt):
         print(f"no exact codec ({exc}): the codec-free half runs",
               flush=True)
     rec = {"codec": codec}
-    match_distances.launches = select_topk.launches = 0
+    counters = (tm.match_topk, tm.match_distances, tm.select_topk)
+    for fn in counters:
+        fn.launches = 0
     t0 = time.perf_counter()
     if codec:
         mips = importlib.util.find_spec("matplotlib") is not None
@@ -1790,14 +1867,15 @@ def evaluation_path(img, clean, ckpt):
                 fail(f"evaluation at {v}: {rows[-1]}")
     rec["seconds"] = time.perf_counter() - t0
     rec["unsupervised"] = rows
-    launches = {"bm4d_match": match_distances.launches,
-                "bm4d_select": select_topk.launches}
-    want = 2 * len(voxels)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want = {"match_topk": 2 * len(voxels), "match_distances": 0,
+            "select_topk": 0}
     print(f"evaluation of {len(voxels)} voxels of {side}^3 in "
           f"{rec['seconds']:.2f} s; matcher launches {launches} (expected "
-          f"{want} each: 2 stages per ground truth)", flush=True)
-    if launches != {"bm4d_match": want, "bm4d_select": want}:
-        fail(f"evaluation launches {launches}, expected {want} each")
+          f"{want}: one fused launch per stage, 2 stages per ground truth)",
+          flush=True)
+    if launches != want:
+        fail(f"evaluation launches {launches}, expected {want}")
     for r in rows:
         # SSIM lies in [-1, 1]; a patch of background only (the first voxel)
         # has nothing but noise for structure, so its SSIM against the noisy
@@ -2133,7 +2211,8 @@ def main():
         print(f"{name}: built in {build_s[name]:.2f} s (with phase 2)")
         print_ptxas(_build, name)
 
-    phase("matching kernels vs plain (block 4, step 3, search 9, group 16)")
+    phase("fused matching kernel vs plain (block 4, step 3, search 9, "
+          "group 16)")
     record["matching_checks"] = matching = matching_kernels()
 
     phase("teacher path: precompute() at its defaults")
@@ -2173,9 +2252,13 @@ def main():
     # Inference: launches of one 256³ block; ms and bounds summed over the
     # block's 54 conv launches (phase 3's path shapes at the block's batch;
     # a stats launch's time includes its reduce, counted apart in
-    # reduce_launches). Teachers: launches of the
-    # counted precompute() run; ms and bounds summed over one patch's two
-    # launches (the 64³ raw patch and its stage-1 estimate, phase 11).
+    # reduce_launches). Teachers: launches of the counted precompute()
+    # run, all of the fused kernel, which carries rows 4 and 5. Row 4: the
+    # fused kernel's ms per patch in the path's batches (a raw stage and a
+    # stage-1 stage, per patch, phase 11), its plain version's and its
+    # bound summed over the 64³ raw patch and its stage-1 estimate. Row 5:
+    # the same selection routine timed alone over a table (bm4d_select.cu)
+    # on those two, beside its plain version and torch.topk.
     # Elementwise: one launch each on the 256³ block. Conv bench: launches of
     # the counted nb_bench.main run; ms and bounds summed over its three
     # shapes at batch 32, one application each (phase 14's times).
@@ -2216,20 +2299,26 @@ def main():
         "reduce_launches": record["reduce_launches_per_block"],
         **per_step(path_checks, path_counts),
     }, {
-        "name": "bm4d_match",
+        "name": "bm4d_match_topk",
         "path": "teachers",
         "route": "cuda",
         "source": "exaspim_tpu_torch/csrc/bm4d_match.cu",
         "replaces": "exaspim_tpu/ops/pallas_bm4d.py:53",
-        "launches": teach["bm4d_match"],
-        **per_step(matching["match"][:2], [1, 1]),
+        "launches": teach["match_topk"],
+        **{**per_step(matching["fused"][:2], [1, 1]),
+           "ms": sum(matching["path_ms"]),
+           "max_abs_err": max(r["max_abs_err"] for r in matching["fused"]
+                              + [{"max_abs_err": matching[
+                                  "batch_max_abs_err"]}])},
     }, {
-        "name": "bm4d_select",
+        "name": "bm4d_match_topk",
         "path": "teachers",
         "route": "cuda",
-        "source": "exaspim_tpu_torch/csrc/bm4d_select.cu",
+        "source": "exaspim_tpu_torch/csrc/bm4d_match.cu",
+        "timed_as": "exaspim_tpu_torch/csrc/bm4d_select.cu (the fused "
+                    "kernel's selection, bm4d_select.cuh, over a table)",
         "replaces": "exaspim_tpu/ops/pallas_bm4d.py:126",
-        "launches": teach["bm4d_select"],
+        "launches": teach["match_topk"],
         **per_step(matching["select"][:2], [1, 1]),
     }] + [{
         "name": name,

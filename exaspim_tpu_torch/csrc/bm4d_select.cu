@@ -1,77 +1,53 @@
-// BM4D group selection: per reference, the K smallest of W^3 packed keys.
+// BM4D group selection over a distance table: per reference, the K smallest
+// of W^3 packed keys, decoded to unclipped block starts.
 //
-// Each entry of the bf16 distance table (R, W^3; offsets in (dz, dy, dx)
-// order, written by bm4d_match.cu) becomes one int32 sort key:
+// Replaces exaspim_tpu/ops/pallas_bm4d.py:126 _select_kernel, the TPU
+// kernel that runs K rounds of a vector minimum over column chunks of a
+// padded table. On the teacher path the selection runs inside the fused
+// matching kernel (bm4d_match.cu), on keys that never leave shared memory;
+// this entry point runs the same routine (bm4d_select.cuh) on a table that
+// is already in device memory, so that the table instance of bm4d_match.cu
+// and the selection can each be held against their plain versions.
 //
-//   key = bf16 bits << 16 | min(|d|^2, 15) << 12 | dy << 8 | dx << 4 | dz
-//
-// with offset digits in [0, W), W <= 15. A non-negative bf16 orders as its
-// bit pattern; the low half prefers near offsets among equal distances and
-// makes every key of a reference unique, so the K smallest are one exact,
-// order-free set. The kernel emits unclipped absolute block starts,
-// step * grid index + digit - W / 2 per axis, best first, into a (3, R, K)
-// int32 tensor (z, y, x).
-//
-// Replaces exaspim_tpu/ops/pallas_bm4d.py:_select_kernel. The TPU kernel
-// runs K rounds of a vector minimum over column chunks of a padded table
-// and masks its padded rows; here one warp owns one reference. Each lane
-// builds the keys of its strided share of the row (23 of 729 at W 9) in
-// shared memory, which it alone reads and writes, and keeps their minimum
-// in a register. A round is one __reduce_min_sync over the warp; only the
-// lane that held the winner retires it and rescans its share. Lane k keeps
-// the k-th winner, so the starts leave in one coalesced store per axis.
+// Input: the bf16 table (R, W^3), offsets in (dz, dy, dx) order, read as
+// 16-bit patterns. Output: a (3, R, K) int32 tensor (z, y, x), best first,
+// step * grid index + digit - W / 2 per axis. One warp owns two
+// references; the block's shared memory holds only the W^3 low halves of
+// the keys.
 //
 // What bounds it on an H100: bytes. It reads the table once (13.5 MB per
 // 64^3 stage at W 9) and writes 3 * R * K ints (1.8 MB).
 
 #include <cuda_runtime.h>
-#include <limits.h>
+
+#include "bm4d_select.cuh"
 
 namespace {
 
-__global__ void bm4d_select_kernel(const unsigned short* __restrict__ table,
-                                   int refs, int gy, int gx, int K, int step,
-                                   int W, int* __restrict__ out) {
-  extern __shared__ int keys[];
-  const int warps = blockDim.x >> 5;
+constexpr int WARPS = 8;
+
+__global__ void __launch_bounds__(WARPS * 32)
+    bm4d_select_kernel(const unsigned short* __restrict__ table, int refs,
+                       int gy, int gx, int K, int step, int W,
+                       int* __restrict__ out) {
+  extern __shared__ unsigned short low[];
+  bm4d::fill_low(low, W);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * warps + warp;
-  if (r >= refs) return;  // a whole warp leaves; no block-wide barrier below
-  const int w3 = W * W * W, half = W / 2;
-  int* kw = keys + warp * w3;
-  const unsigned short* row = table + (long long)r * w3;
-  int best = INT_MAX;
-  for (int c = lane; c < w3; c += 32) {
-    const int dx = c % W, dy = (c / W) % W, dz = c / (W * W);
-    const int n2 = (dz - half) * (dz - half) + (dy - half) * (dy - half) +
-                   (dx - half) * (dx - half);
-    const int key = ((int)row[c] << 16) | (min(n2, 15) << 12) | (dy << 8) |
-                    (dx << 4) | dz;
-    kw[c] = key;
-    best = min(best, key);
-  }
-  int mine = 0;
-  for (int k = 0; k < K; ++k) {
-    const int mk = __reduce_min_sync(0xffffffffu, best);
-    if (lane == k) mine = mk;
-    if (best == mk) {  // keys are unique: exactly one lane
-      best = INT_MAX;
-      for (int c = lane; c < w3; c += 32) {
-        const int v = kw[c];
-        if (v == mk)
-          kw[c] = INT_MAX;
-        else
-          best = min(best, v);
-      }
-    }
-  }
-  if (lane < K) {
+  // Two references a warp; an odd last one is selected twice, stored once.
+  const int r0 = 2 * (blockIdx.x * WARPS + warp);
+  if (r0 >= refs) return;  // a whole warp leaves; no barrier below
+  const int rs[2] = {r0, r0 + 1 < refs ? r0 + 1 : r0};
+  const int w3 = W * W * W;
+  const unsigned short* rows[2] = {table + (long long)rs[0] * w3,
+                                   table + (long long)rs[1] * w3};
+  int keys[2];
+  bm4d::warp_topk<2>(rows, low, w3, K, lane, keys);
+  for (int j = 0; j < 2 - (rs[1] == rs[0]); ++j) {
+    const int r = rs[j];
     const int gk = r % gx, gj = (r / gx) % gy, gi = r / (gx * gy);
-    const long long plane = (long long)refs * K;
-    const long long o = (long long)r * K + lane;
-    out[o] = step * gi + (mine & 15) - half;
-    out[plane + o] = step * gj + ((mine >> 8) & 15) - half;
-    out[2 * plane + o] = step * gk + ((mine >> 4) & 15) - half;
+    bm4d::store_starts(out, refs, r, K, lane, keys[j], step * gi, step * gj,
+                       step * gk, W / 2);
   }
 }
 
@@ -79,21 +55,17 @@ __global__ void bm4d_select_kernel(const unsigned short* __restrict__ table,
 
 // C entry point, bound with ctypes. table: (gz * gy * gx, W^3) bf16,
 // contiguous; out: (3, R, K) int32. The wrapper keeps W <= 15 and
-// K <= 32. Launches on `stream`, does not synchronise, returns the
-// cudaError_t of the launch.
+// 1 <= K <= min(32, W^3). Launches on `stream`, does not synchronise,
+// returns the cudaError_t of the launch.
 extern "C" int bm4d_select_bf16(const void* table, int gz, int gy, int gx,
                                 int K, int step, int W, void* out,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int refs = gz * gy * gx;
-  const int w3 = W * W * W;
-  // As many warps per block as fit 48 KB of shared memory, at most 8.
-  int warps = (48 * 1024) / (w3 * (int)sizeof(int));
-  if (warps > 8) warps = 8;
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((refs + warps - 1) / warps);
-  bm4d_select_kernel<<<blocks, warps * 32, (size_t)warps * w3 * sizeof(int),
-                       s>>>(static_cast<const unsigned short*>(table), refs,
-                            gy, gx, K, step, W, static_cast<int*>(out));
+  const size_t shared = sizeof(unsigned short) * W * W * W;
+  const unsigned blocks = (unsigned)((refs + 2 * WARPS - 1) / (2 * WARPS));
+  bm4d_select_kernel<<<blocks, WARPS * 32, shared,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(table), refs, gy, gx, K, step, W,
+      static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

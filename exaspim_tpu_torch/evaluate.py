@@ -7,8 +7,9 @@ plots and CSV reports, with the same column names and rounding digits.
 
 Model inference runs through the tiled engine
 (:mod:`exaspim_tpu_torch.inference`) and the BM4D ground truth through
-:func:`exaspim_tpu_torch.ops.bm4d.bm4d` (the matching kernels on the card),
-so an evaluation pass stays on ``device`` except for the codec calls.
+:func:`exaspim_tpu_torch.ops.bm4d.bm4d` (the fused matching kernel on the
+card), so an evaluation pass stays on ``device`` except for the codec
+calls.
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ Counterpart of ``exaspim_tpu/ops/bm4d.py``: the same two-pass algorithm
 with the same static structure, so its teachers can stand in for the JAX
 package's:
 
-* block matching on a reference grid of stride ``step``: either the two
-  kernels of :mod:`exaspim_tpu_torch.ops.bm4d_match` (``matcher="kernel"``,
-  the default; bf16 table, packed-key top-K) or dense f32 distances with
-  a ``topk`` (``matcher="dense"``, needed for ``search > 15``);
+* block matching on a reference grid of stride ``step``: either the
+  fused matching kernel of :mod:`exaspim_tpu_torch.ops.bm4d_match`
+  (``matcher="kernel"``, the default; bf16 distances, packed-key top-K,
+  one launch per stage for a whole batch) or dense f32 distances with a
+  ``topk`` (``matcher="dense"``, needed for ``search > 15``);
 * the factored 4D transform: a patch-extraction conv whose kernel already
   carries the 3D block DCT, one row gather per group, a ``(K, K)``
   contraction along the group axis, shrinkage, and the inverse chain;
@@ -171,11 +172,14 @@ def _deterministic():
 
 
 def _conv_ndhwc(x, kern_np):
-    """VALID/explicitly padded 3D correlation of ``(Z, Y, X, Cin)`` with a
-    DHWIO numpy kernel → ``(Z', Y', X', Cout)``, rows contiguous."""
+    """VALID/explicitly padded 3D correlation of ``(Z, Y, X, Cin)``, or of
+    a batch ``(N, Z, Y, X, Cin)``, with a DHWIO numpy kernel →
+    ``([N,] Z', Y', X', Cout)``, rows contiguous."""
     w = torch.from_numpy(kern_np).to(x.device).permute(4, 3, 0, 1, 2)
-    out = F.conv3d(x.permute(3, 0, 1, 2)[None], w.contiguous())
-    return out[0].permute(1, 2, 3, 0).contiguous()
+    xb = x[None] if x.dim() == 4 else x
+    out = F.conv3d(xb.permute(0, 4, 1, 2, 3), w.contiguous())
+    out = out.permute(0, 2, 3, 4, 1).contiguous()
+    return out[0] if x.dim() == 4 else out
 
 
 def _box_sum3(x, size, stride):
@@ -228,12 +232,24 @@ def bm4d_stage(noisy, guide, sigma, block=4, group=16, step=3, search=9,
 
     ``mode="hard"``: hard-threshold coefficients at 2.7σ (stage 1).
     ``mode="wiener"``: empirical Wiener with ``guide`` as the signal
-    estimate (stage 2). ``matcher``: ``"kernel"`` (the two matching
-    kernels on a CUDA tensor, their plain versions on a CPU tensor) or
+    estimate (stage 2). ``matcher``: ``"kernel"`` (the fused matching
+    kernel on a CUDA tensor, its plain version on a CPU tensor) or
     ``"dense"``. ``agg``: ``"slices"`` or ``"conv"``. Volumes are numpy
-    arrays or tensors and are moved to ``device``. Returns the aggregated estimate, an f32 tensor of the
-    input's shape on ``device``.
+    arrays or tensors and are moved to ``device``. Returns the aggregated
+    estimate, an f32 tensor of the input's shape on ``device``.
     """
+    _check_options(mode, matcher, agg)
+    noisy = _as_volume(noisy, device)
+    guide = _as_volume(guide, device)
+    if noisy.dim() != 3 or noisy.shape != guide.shape:
+        raise ValueError(f"expected two equal 3D volumes, got "
+                         f"{tuple(noisy.shape)} and {tuple(guide.shape)}")
+    with torch.no_grad(), _full_f32():
+        return _stage(noisy[None], guide[None], np.float32(sigma), block,
+                      group, step, search, mode, matcher, agg)[0]
+
+
+def _check_options(mode, matcher, agg):
     if mode not in ("hard", "wiener"):
         raise ValueError(f"unknown mode {mode!r}")
     for name, value, known in (("matcher", matcher, ("kernel", "dense")),
@@ -243,38 +259,37 @@ def bm4d_stage(noisy, guide, sigma, block=4, group=16, step=3, search=9,
                              f"here it is {name}={_RENAMED[name][value]!r}")
         if value not in known:
             raise ValueError(f"unknown {name} {value!r}")
-    noisy = _as_volume(noisy, device)
-    guide = _as_volume(guide, device)
-    if noisy.dim() != 3 or noisy.shape != guide.shape:
-        raise ValueError(f"expected two equal 3D volumes, got "
-                         f"{tuple(noisy.shape)} and {tuple(guide.shape)}")
-    with torch.no_grad(), _full_f32():
-        return _stage(noisy, guide, np.float32(sigma), block, group, step,
-                      search, mode, matcher, agg)
 
 
 def _stage(noisy, guide, sigma, B, K, step, W, mode, matcher, agg):
-    Z0, Y0, X0 = noisy.shape
+    """One pass over a batch ``(N, Z, Y, X)``: one matching launch, one
+    patch conv, one gather and one scatter for all N volumes, whose rows
+    never mix (volume n's rows are offset by n·rz·ry·rx)."""
+    N, Z0, Y0, X0 = noisy.shape
     dev = noisy.device
     # Regularize the reference grid: reflect-pad each tail so (dim − B) is
     # a multiple of ``step``; results are cropped back at the end.
     tails = [(-(d - B)) % step for d in (Z0, Y0, X0)]
     if any(tails):
         pad = (0, tails[2], 0, tails[1], 0, tails[0])
-        noisy = F.pad(noisy[None, None], pad, mode="reflect")[0, 0]
-        guide = F.pad(guide[None, None], pad, mode="reflect")[0, 0]
-    Z, Y, X = noisy.shape
+        noisy = F.pad(noisy[:, None], pad, mode="reflect")[:, 0]
+        guide = F.pad(guide[:, None], pad, mode="reflect")[:, 0]
+    Z, Y, X = noisy.shape[1:]
 
     if matcher == "dense":
-        sz, sy, sx = _match_dense(guide, B, K, W, step)
+        sz, sy, sx = (torch.stack(s) for s in zip(
+            *(_match_dense(g, B, K, W, step) for g in guide)))
     else:
         sz, sy, sx = match_topk(guide, block=B, group=K, step=step, search=W)
     # Clamp near-border candidates into the volume (clipped members may
     # coincide); int64 for indexing.
     rz, ry, rx = Z - B + 1, Y - B + 1, X - B + 1
-    lin = ((sz.long().clamp_(0, Z - B) * ry + sy.long().clamp_(0, Y - B))
-           * rx + sx.long().clamp_(0, X - B))  # (R, K) row numbers
-    del sz, sy, sx
+    nrows = rz * ry * rx
+    base = nrows * torch.arange(N, device=dev)[:, None, None]
+    lin = (base + (sz.long().clamp_(0, Z - B) * ry
+                   + sy.long().clamp_(0, Y - B)) * rx
+           + sx.long().clamp_(0, X - B)).reshape(-1, K)  # (N·R, K) rows
+    del sz, sy, sx, base
 
     nb3 = B * B * B
     mk = torch.from_numpy(_dct_matrix_np(K)).to(dev)
@@ -285,16 +300,16 @@ def _stage(noisy, guide, sigma, B, K, step, W, mode, matcher, agg):
         # block starting at voxel p, so the gather moves whole rows.
         rows = _conv_ndhwc(torch.stack(vols, -1),
                            _patch_dct_kernel_np(B, len(vols)))
-        return rows.reshape(rz * ry * rx, len(vols) * nb3)
+        return rows.reshape(N * nrows, len(vols) * nb3)
 
     if mode == "hard":
-        g = block_rows([noisy])[lin]  # (R, K, B³) DCT-space rows
+        g = block_rows([noisy])[lin]  # (N·R, K, B³) DCT-space rows
         coef = torch.matmul(mk, g)
         del g
         keep = coef.abs() > float(np.float32(2.7) * sigma)
         coef = torch.where(keep, coef, torch.zeros_like(coef))
         nretained = keep.sum(dim=(1, 2)).to(torch.float32)
-        wgt = 1.0 / (1.0 + nretained)  # (R,)
+        wgt = 1.0 / (1.0 + nretained)  # (N·R,)
         del keep
     else:
         both = block_rows([noisy, guide])[lin].reshape(-1, K, 2, nb3)
@@ -320,17 +335,18 @@ def _stage(noisy, guide, sigma, B, K, step, W, mode, matcher, agg):
     filt_rows = torch.cat([filt * w, w.expand(-1, K, 1)], dim=-1)
     filt_rows = filt_rows.reshape(-1, nrow)
     del filt
-    acc_rows = torch.zeros((rz * ry * rx, nrow), device=dev)
+    acc_rows = torch.zeros((N * nrows, nrow), device=dev)
     with _deterministic():
         acc_rows.index_add_(0, lin.reshape(-1), filt_rows)
     del filt_rows
-    return _fold_rows(acc_rows.reshape(rz, ry, rx, nrow), agg,
+    return _fold_rows(acc_rows.reshape(N, rz, ry, rx, nrow), agg,
                       B, Z, Y, X, Z0, Y0, X0, nrow)
 
 
 def _fold_rows(acc_rows, agg, B, Z, Y, X, Z0, Y0, X0, nrow):
-    """Fold rows back to voxel space: out[v] = Σ_δ rows[v − δ, flat(δ)]."""
-    rz, ry, rx = acc_rows.shape[:3]
+    """Fold rows ``(N, rz, ry, rx, nrow)`` back to voxel space:
+    out[v] = Σ_δ rows[v − δ, flat(δ)]."""
+    N, rz, ry, rx = acc_rows.shape[:4]
     if agg == "conv":
         # One conv: out channel 0 is the value col2im, channel 1 folds the
         # weight lane with an all-taps kernel.
@@ -340,29 +356,50 @@ def _fold_rows(acc_rows, agg, B, Z, Y, X, Z0, Y0, X0, nrow):
     else:
         # B³ shifted adds, in the order of flat(δ), from a channel-major
         # copy so each add reads a contiguous volume.
-        planes = acc_rows.permute(3, 0, 1, 2).contiguous()
-        accum = torch.zeros((Z, Y, X), device=acc_rows.device)
+        planes = acc_rows.permute(4, 0, 1, 2, 3).contiguous()
+        accum = torch.zeros((N, Z, Y, X), device=acc_rows.device)
         for dz in range(B):
             for dy in range(B):
                 for dx in range(B):
                     flat = (dz * B + dy) * B + dx
-                    accum[dz:dz + rz, dy:dy + ry, dx:dx + rx] += planes[flat]
+                    accum[:, dz:dz + rz, dy:dy + ry, dx:dx + rx] += \
+                        planes[flat]
         # The weight fold is a B-box sum of the weight lane, separably.
         weight = _box_sum3(
             F.pad(planes[nrow - 1], (B - 1, B - 1) * 3), B, 1)
-    return (accum / (weight + 1e-12))[:Z0, :Y0, :X0]
+    return (accum / (weight + 1e-12))[:, :Z0, :Y0, :X0]
 
 
 def bm4d_batch(vols, sigma, block=4, group=16, step=3, search=9,
                two_stage=True, matcher="kernel", agg="slices", device="cuda"):
-    """Denoise a batch of equal-shape volumes ``(N, Z, Y, X)``: a host
-    loop of per-volume calls with single-volume peak memory, stacked on
-    ``device``."""
-    return torch.stack([
-        bm4d(v, sigma, block=block, group=group, step=step, search=search,
-             two_stage=two_stage, matcher=matcher, agg=agg, device=device)
-        for v in vols
-    ])
+    """Denoise a batch of equal-shape volumes ``(N, Z, Y, X)``; returns an
+    f32 tensor of that shape on ``device``.
+
+    The N volumes go through each stage together: one matching launch,
+    one patch conv, one gather, one scatter and one fold for the whole
+    batch, so the host issues each stage's ~100 launches once per batch,
+    not once per volume. The JAX package's counterpart loops over volumes
+    (a fused ``lax.map`` program ran slower there); on the card a stage
+    of one 64³ patch is too small to keep it busy, and batching is what
+    removes the host's share. Each volume's result is that of
+    :func:`bm4d` on it: the volumes share no rows, and every operation is
+    row-wise, per volume, or a deterministic scatter; only a library call
+    whose summation order depends on the batch (cuDNN may pick another
+    algorithm for the patch conv) can change a last bit. Peak memory grows
+    with N.
+    """
+    _check_options("hard", matcher, agg)
+    vols = _as_volume(vols, device)
+    if vols.dim() != 4:
+        raise ValueError(f"expected a batch (N, Z, Y, X), got "
+                         f"{tuple(vols.shape)}")
+    kw = (block, group, step, search)
+    sigma = np.float32(sigma)
+    with torch.no_grad(), _full_f32():
+        basic = _stage(vols, vols, sigma, *kw, "hard", matcher, agg)
+        if not two_stage:
+            return basic
+        return _stage(vols, basic, sigma, *kw, "wiener", matcher, agg)
 
 
 def bm4d(vol, sigma, block=4, group=16, step=3, search=9, two_stage=True,
@@ -376,9 +413,6 @@ def bm4d(vol, sigma, block=4, group=16, step=3, search=9, two_stage=True,
     vol = _as_volume(vol, device)
     if vol.dim() != 3:
         raise ValueError(f"expected 3D volume, got {tuple(vol.shape)}")
-    kw = dict(block=block, group=group, step=step, search=search,
-              matcher=matcher, agg=agg, device=device)
-    basic = bm4d_stage(vol, vol, sigma, mode="hard", **kw)
-    if not two_stage:
-        return basic
-    return bm4d_stage(vol, basic, sigma, mode="wiener", **kw)
+    return bm4d_batch(vol[None], sigma, block=block, group=group, step=step,
+                      search=search, two_stage=two_stage, matcher=matcher,
+                      agg=agg, device=device)[0]

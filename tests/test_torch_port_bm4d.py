@@ -87,6 +87,26 @@ def test_two_stage_bm4d_matches_jax(interpret_matcher, volume, matcher):
     assert torch.equal(batch[0], torch.from_numpy(got))
 
 
+@pytest.mark.parametrize("matcher", ["kernel", "dense"])
+def test_bm4d_batch_equals_per_volume_and_matches_jax(interpret_matcher,
+                                                      volume, matcher):
+    """Three volumes staged together: each result equals the port's
+    per-volume bm4d, and the batch stands to the JAX bm4d_batch as one
+    volume does in test_two_stage_bm4d_matches_jax."""
+    vols = np.stack([volume, volume[::-1], np.roll(volume, 5, axis=2)])
+    got = tb.bm4d_batch(vols, SIGMA, matcher=matcher, device="cpu", **KW)
+    assert got.shape == vols.shape and got.dtype == torch.float32
+    for v, g in zip(vols, got):
+        assert torch.equal(g, tb.bm4d(v, SIGMA, matcher=matcher,
+                                      device="cpu", **KW))
+    want = np.asarray(jb.bm4d_batch(vols, SIGMA, matcher=MATCHERS[matcher],
+                                    **KW))
+    got = got.numpy()
+    assert _rmse(got, want) <= 5e-2 * SIGMA
+    assert (np.abs(np.round(got) - np.round(want)) <= 1).mean() >= 0.99
+    assert _rmse(got, want) < 0.2 * _rmse(got, vols)
+
+
 @pytest.mark.parametrize("name,args", [
     ("_dct_matrix_np", (16,)), ("_dct4_matrix_np", (5, 3)),
     ("_kron3_matrix_np", (4,)), ("_patch_kernel_np", (4, 2)),
@@ -167,6 +187,8 @@ def test_bad_arguments_raise_and_flags_are_restored():
             tb.bm4d_stage(vol, vol, 1.0, device="cpu", **bad)
     import inspect
 
+    with pytest.raises(ValueError, match="batch"):
+        tb.bm4d_batch(vol, 1.0, device="cpu")
     for fn in (tb.bm4d, tb.bm4d_stage, tb.bm4d_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     flags = (torch.backends.cudnn.allow_tf32,

@@ -49,11 +49,34 @@ def _volume(shape, seed, block=4, step=3):
     ((22, 22, 22), 9, 16),  # the defaults
 ])
 def test_match_topk_matches_jax(shape, search, group):
-    B, step = 4, 3
     vol = _volume(shape, 3)
     got = [s.numpy() for s in tm.match_topk(
-        torch.from_numpy(vol), block=B, group=group, step=step,
+        torch.from_numpy(vol), block=4, group=group, step=3,
         search=search)]
+    _assert_matches_jax(vol, got, search, group)
+
+
+@pytest.mark.parametrize("shape,search,group", [
+    ((22, 22, 22), 9, 16),  # the defaults
+    ((19, 16, 13), 5, 8),
+])
+def test_batched_match_topk_matches_jax(shape, search, group):
+    """A batch of three guides: (N, R, K) starts, each volume's equal to
+    the single-guide call's and held to the JAX matcher as one guide is."""
+    vols = np.stack([_volume(shape, seed) for seed in (4, 5, 6)])
+    got = tm.match_topk(torch.from_numpy(vols), block=4, group=group, step=3,
+                        search=search)
+    for i, vol in enumerate(vols):
+        one = tm.match_topk(torch.from_numpy(vol), block=4, group=group,
+                            step=3, search=search)
+        for a, b in zip(got, one):
+            assert a.shape == (3, *b.shape)
+            assert torch.equal(a[i], b)
+        _assert_matches_jax(vol, [s[i].numpy() for s in got], search, group)
+
+
+def _assert_matches_jax(vol, got, search, group):
+    B, step = 4, 3
     want = [np.asarray(s) for s in jax_match_topk(
         vol, block=B, group=group, step=step, search=search, interpret=True)]
     gz, gy, gx = tm.grid_shape(vol.shape, B, step)
@@ -162,3 +185,61 @@ def test_rejects_bad_inputs():
     with pytest.raises(ValueError, match="group size"):
         tm.select_topk(table, (3, 3, 3), 28, 3, 3)
     assert tm.match_distances.launches == 0 and tm.select_topk.launches == 0
+
+
+@pytest.mark.parametrize("search", [5, 7, 9, 15])
+@pytest.mark.parametrize("block", [4, 5])
+@pytest.mark.parametrize("table", [False, True])
+def test_match_plan_fits_and_covers_every_reference(block, search, table):
+    """The fused kernel's tile plan: its shared memory fits a block of an
+    H100, its tiles cover every reference of the grid exactly once, and a
+    warp's 32 consecutive offset tasks read 32 different banks."""
+    for grid in ((21, 21, 21), (43, 43, 43), (6, 5, 4), (1, 1, 9)):
+        p = tm._match_plan(grid, block, 3, search, table)
+        ty, tx, d = p["ty"], p["tx"], p["d"]
+        assert p["shared"] < 227 * 1024
+        assert 32 <= p["threads"] <= 256 and p["threads"] % 32 == 0
+        assert search % d == 0 and (d == 1 or (block, d) == (4, 3))
+        assert ty in (3, 4) if block == 4 else 1 <= ty <= 4
+        seen = np.zeros(grid, int)
+        gz, tiles_y, tiles_x = p["tiles"]
+        assert gz == grid[0]
+        for tyi in range(tiles_y):
+            for txi in range(tiles_x):
+                ys = np.arange(tyi * ty, min((tyi + 1) * ty, grid[1]))
+                xs = np.arange(txi * tx, min((txi + 1) * tx, grid[2]))
+                assert len(ys) and len(xs)  # no empty tile
+                seen[:, ys[:, None], xs[None, :]] += 1
+        assert (seen == 1).all()
+        # The union of a tile, and the pitches that spread its lanes.
+        uy = (ty - 1) * 3 + block + search - 1
+        ux = (tx - 1) * 3 + block + search - 1
+        assert p["sy"] >= ux and p["sz"] >= uy * p["sy"]
+        w3 = search ** 3
+        keys = 0 if table else 2 * (-(-w3 // 8) * 8 + ty * tx * w3)
+        union = 4 * (block + search - 1) * p["sz"]
+        if block == 4:  # 16-byte aligned, then the float4 reference rows
+            union = -(-union // 16) * 16 + 16 * (3 * tx + 1) * (3 * ty + 1)
+        assert p["shared"] == union + keys
+        groups = search // d
+        tau = np.arange(search * groups * search)
+        dx, dy0, dz = (tau % search, (tau // search) % groups * d,
+                       tau // (search * groups))
+        banks = (dz * p["sz"] + dy0 * p["sy"] + dx) % 32
+        for lo in range(0, len(tau), 32):
+            assert len(set(banks[lo:lo + 32])) == len(banks[lo:lo + 32])
+
+
+def test_match_bench_runs_on_the_cpu():
+    from exaspim_tpu_torch.ops import match_bench
+
+    out = match_bench.main(["16", "--batch", "2", "--reps", "1", "--plain"],
+                           device="cpu")
+    rec, = out["matcher"]
+    assert rec["fused"] and rec["refs"] == 125 and rec["shape"] == [16] * 3
+    for key in ("match_topk_ms", "match_topk_batch_ms_per_guide",
+                "table_batch_ms_per_guide", "table_ms", "select_ms",
+                "topk_ms", "plain_ms", "bound_ms"):
+        assert rec[key] > 0
+    assert rec["bound_by"] == "operations"
+    assert rec["device"].startswith("cpu")

@@ -163,6 +163,53 @@ def test_match_and_select_kernels_match_plain(shape, block, step, search,
         assert torch.equal(a, b)
 
 
+_MATCH_PARAMS = [((22, 22, 22), 4, 3, 9, 16), ((19, 16, 13), 4, 3, 5, 8),
+                 ((20, 14, 17), 5, 3, 7, 32), ((22, 22, 22), 4, 3, 15, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [None, 3])
+@pytest.mark.parametrize("shape,block,step,search,group", _MATCH_PARAMS)
+def test_fused_match_kernel_matches_plain(shape, block, step, search, group,
+                                          n):
+    """One guide (n None) or a batch of three: one launch, the plain
+    version's starts exactly, and no (R, W³) table allocated."""
+    _card()
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+
+    rng = np.random.default_rng(11)
+    vols = _rand(rng, (n or 1, *shape), 20.0) + 100.0
+    vols = np.pad(vols, [(0, 0)] + [(0, (-(d - block)) % step)
+                                    for d in shape], mode="reflect")
+    vols = vols[0] if n is None else vols
+    g = torch.from_numpy(vols).cuda()
+    grid = tm.grid_shape(g.shape[-3:], block, step)
+    refs = (n or 1) * grid[0] * grid[1] * grid[2]
+    # What the call may hold: the padded guides and the starts (each
+    # rounded up to the allocator's 512-byte blocks); a table would add
+    # refs * W³ * 2 bytes.
+    padded = (n or 1) * np.prod([d + search - 1 for d in g.shape[-3:]]) * 4
+    allowed = padded + 3 * refs * group * 4 + 1024
+    torch.cuda.synchronize()
+    before = (tm.match_topk.launches, tm.match_distances.launches,
+              tm.select_topk.launches)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    starts = tm.match_topk(g, block, group, step, search)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    assert (tm.match_topk.launches, tm.match_distances.launches,
+            tm.select_topk.launches) == (before[0] + 1, *before[1:])
+    assert peak <= allowed, (peak, allowed, refs * search ** 3 * 2)
+    want = tm.match_topk_plain(torch.from_numpy(vols), block, group, step,
+                               search)
+    for a, b in zip(starts, want):
+        assert a.dtype == torch.int32 and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)
+    again = tm.match_topk(g, block, group, step, search)
+    assert all(torch.equal(a, b) for a, b in zip(starts, again))
+
+
 @pytest.mark.gpu
 def test_asinh_kernels_match_plain():
     _card()
@@ -219,6 +266,30 @@ def test_bm4d_on_the_card_is_deterministic_and_matches_the_cpu():
     # a rare coefficient at the threshold: teachers within 1 count.
     d = (a.cpu().round() - cpu.round()).abs()
     assert float(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_bm4d_batch_on_the_card_matches_per_volume():
+    """Three volumes staged together: two launches of the fused matcher,
+    and each teacher within a count of its per-volume bm4d on ≤ 1e-3 of
+    voxels (cuDNN may sum the batched patch conv in another order)."""
+    _card()
+    import importlib
+
+    from exaspim_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from exaspim_tpu_torch.ops import bm4d_match as tm
+
+    tb = importlib.import_module("exaspim_tpu_torch.ops.bm4d")
+    ds = SyntheticPatchDataset(n=3, patch_shape=(32, 32, 32), seed=7)
+    vols = np.stack([ds.raw_and_fg(i)[0] for i in range(3)]).astype(
+        np.float32)
+    before = tm.match_topk.launches
+    batch = tb.bm4d_batch(vols, 24.0)
+    assert tm.match_topk.launches == before + 2
+    assert torch.equal(batch, tb.bm4d_batch(vols, 24.0))
+    for i in range(3):
+        d = (batch[i].round() - tb.bm4d(vols[i], 24.0).round()).abs()
+        assert float(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
 
 
 @pytest.mark.gpu
