@@ -29,7 +29,11 @@ line:
    the tile plans it ran are exactly those phase 3 checked; then timed
    runs, a profile and a small-input check against the f32 CPU path;
 5. quality: PSNR, SSIM and the blosc-zstd chunked ratio gain against the
-   clean phantom, held to the repository's quality guard;
+   clean phantom, scored through the port's quality check
+   (``ckpt_quality.score``) and held to the repository's quality guard
+   (no exact codec on the card's machine: PSNR and SSIM); beside it, not in
+   it, the entropy-proxy ratio of noisy and denoised and their gain from
+   one ``chunk_byte_histograms`` launch on the pair;
 6. build (training kernels): the dL/dW and byte-histogram ptxas reports;
    then the synthetic caches of phase 10 (128 train + 32 val 64³ patches,
    seed 42, Gaussian teacher) are written under ``chip_smoke_work/``;
@@ -40,8 +44,15 @@ line:
    against its plain version at batch 32 (two launches bit-equal, a
    planted dL/dW tap fault caught) and timed beside it, cuDNN's
    ``convolution_backward`` (a yardstick only) and the card's bound;
-8. byte-histogram kernel vs plain on the byte planes of a validation
-   batch (counts equal), beside one ``torch.bincount``;
+8. byte-histogram kernel vs plain: both entries (``byte_histogram`` on
+   rows, ``chunk_byte_histograms`` on count volumes) at every case of
+   ``ops/hist_bench.edge_cases`` (one repeated byte, uniform bytes, the hi
+   and lo planes of a noisy phantom, the uint16 wrap, lengths no multiple
+   of 16, a 27³ chunk, more than 65,535 rows, a misaligned base), on a
+   validation batch and on phase 4's 256³ pair: counts equal, two launches
+   bit-equal, one call one kernel (the call captured in a CUDA graph holds
+   one kernel node: no memset, no conversion, no copy); graph and wrapper
+   times beside the plain version's, one ``torch.bincount`` and the bound;
 9. gradient check, full-width bf16 UNet at 32³, batch 2: (a) each conv's
    backward against an independent f32 reference on the same saved
    inputs and cotangents; (b) whole-model gradients against the plain
@@ -450,42 +461,93 @@ def check_dw(b, n, segs, cout, seed):
     return rec
 
 
-def check_histogram(vols):
-    """Byte-histogram kernel vs plain on the byte planes of a batch of
-    64³ count volumes (the rows one validation batch gives it)."""
+def check_histogram(val_vols, pair):
+    """Phase 8: both entries of the byte-histogram kernel against their
+    plain versions at every edge case of ``hist_bench.edge_cases``, on a
+    validation batch (``val_vols``, 32 x 64^3 int32 counts) and on the 256^3
+    pair of phase 4 (noisy and denoised, int32); two launches bit-equal;
+    one call one kernel on the device; times on the batch and the pair."""
     import torch
 
-    from exaspim_tpu_torch.compression.proxy import (
-        _byte_planes,
-        _chunks,
-        byte_histogram,
-        byte_histogram_plain,
-    )
+    from exaspim_tpu_torch.compression import proxy as P
+    from exaspim_tpu_torch.ops import hist_bench as hb
 
-    ch = _chunks(vols.to(torch.int32), 64)
-    lo, hi = _byte_planes(ch)
-    rows = torch.stack([lo, hi], dim=2).reshape(-1, lo[0, 0].numel())
-    got = byte_histogram(rows)
-    ref = byte_histogram_plain(rows)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        fail(f"byte_histogram: counts differ ({int((got != ref).sum())} bins)")
-    n, length = rows.shape
-    offs = rows.to(torch.int64) + 256 * torch.arange(
-        n, device="cuda")[:, None]
-    kernel_ms = cuda_ms(lambda: byte_histogram(rows), 50)
-    plain_ms = cuda_ms(lambda: byte_histogram_plain(rows), 3)
-    library_ms = cuda_ms(
-        lambda: torch.bincount(offs.reshape(-1), minlength=256 * n), 20)
-    nbytes = n * length + 4 * 256 * n
-    rec = {"rows": n, "row_bytes": length, "max_abs_err": 0.0,
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
-    print(f"byte_histogram {n} rows x {length} B: counts equal; "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (one torch.bincount) "
-          f"bound_ms={rec['bound_ms']:.4f} (bytes)", flush=True)
-    return rec
+    def check(name, rows, vols, chunk):
+        got = P.byte_histogram(rows)
+        got_c = P.chunk_byte_histograms(vols, chunk)
+        ref = P.byte_histogram_plain(rows)
+        ref_c = P.chunk_byte_histograms_plain(vols, chunk)
+        again = (P.byte_histogram(rows), P.chunk_byte_histograms(vols, chunk))
+        torch.cuda.synchronize()
+        for label, a, b in (("byte_histogram", got, ref),
+                            ("chunk_byte_histograms", got_c, ref_c)):
+            if not torch.equal(a, b):
+                fail(f"{label} on {name}: counts differ in "
+                     f"{int((a != b).sum())} bins")
+        if not (torch.equal(again[0], got) and torch.equal(again[1], got_c)):
+            fail(f"byte histogram on {name}: two launches differ")
+        print(f"{name}: rows {tuple(rows.shape)}, volumes "
+              f"{tuple(vols.shape)} chunk {chunk}: both entries equal to "
+              "plain, repeat bit-equal", flush=True)
+
+    for name, (rows, vols, chunk) in hb.edge_cases("cuda").items():
+        check(name, rows, vols, chunk)
+    work = {"validation batch": val_vols, "256^3 pair": pair}
+    rows = {k: hb._rows(v, 64) for k, v in work.items()}
+    for k in work:
+        check(k, rows[k], work[k], 64)
+    # One call, one kernel: the call captured in a CUDA graph holds one
+    # kernel node and nothing else (no memset, no conversion, no copy).
+    for label, fn in (
+            ("byte_histogram", lambda: P.byte_histogram(rows["256^3 pair"])),
+            ("chunk_byte_histograms",
+             lambda: P.chunk_byte_histograms(work["256^3 pair"], 64))):
+        ops = hb.device_ops(fn)
+        if len(ops) != 1 or ops[0][0] != "kernel" \
+                or "byte_histogram" not in ops[0][1]:
+            fail(f"one {label} call enqueued {ops}, not one kernel")
+        print(f"one {label} call: one kernel node ({ops[0][1]})")
+
+    graph_ms, wrapper_ms = hb._timers("cuda", 50)
+    recs = {}
+    for k, vols in work.items():
+        r = rows[k]
+        n_out = 4 * 256 * r.shape[0]
+        recs[k] = {
+            "rows": list(r.shape), "volumes": list(vols.shape),
+            "max_abs_err": 0.0,
+            "ms": graph_ms(lambda: P.byte_histogram(r)),
+            "wrapper_ms": wrapper_ms(lambda: P.byte_histogram(r)),
+            "plain_ms": wrapper_ms(lambda: P.byte_histogram_plain(r)),
+            "library_ms": wrapper_ms(hb._bincount(r)),
+            "bound_ms": 1e3 * (r.numel() + n_out) / PEAK_BYTES,
+            "bound_by": "bytes",
+            "chunk_entry": {
+                "max_abs_err": 0.0,
+                "ms": graph_ms(lambda: P.chunk_byte_histograms(vols, 64)),
+                "wrapper_ms": wrapper_ms(
+                    lambda: P.chunk_byte_histograms(vols, 64)),
+                "plain_ms": wrapper_ms(
+                    lambda: P.chunk_byte_histograms_plain(vols, 64)),
+                "library_ms": None,
+                "bound_ms": 1e3 * (4 * vols.numel() + n_out) / PEAK_BYTES,
+                "bound_by": "bytes"},
+            "cratio_proxy_batch_ms": graph_ms(
+                lambda: P.cratio_proxy_batch(vols, 64)),
+            "cratio_proxy_batch_wrapper_ms": wrapper_ms(
+                lambda: P.cratio_proxy_batch(vols, 64)),
+        }
+        h, c = recs[k], recs[k]["chunk_entry"]
+        print(f"{k}: byte_histogram {r.shape[0]} rows x {r.shape[1]} B: "
+              f"graph {h['ms']:.4f} ms, wrapper {h['wrapper_ms']:.4f}, plain "
+              f"{h['plain_ms']:.4f}, bincount {h['library_ms']:.4f}, bound "
+              f"{h['bound_ms']:.4f} (bytes); chunk_byte_histograms graph "
+              f"{c['ms']:.4f} ms, wrapper {c['wrapper_ms']:.4f}, plain "
+              f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} (bytes); "
+              f"cratio_proxy_batch graph {h['cratio_proxy_batch_ms']:.4f} "
+              f"ms, wrapper {h['cratio_proxy_batch_wrapper_ms']:.4f}",
+              flush=True)
+    return recs
 
 
 @contextlib.contextmanager
@@ -841,7 +903,10 @@ def training_path(train_dir, val_dir):
     import torch
 
     from exaspim_tpu_torch.compression import best_codec
-    from exaspim_tpu_torch.compression.proxy import byte_histogram
+    from exaspim_tpu_torch.compression.proxy import (
+        byte_histogram,
+        chunk_byte_histograms,
+    )
     from exaspim_tpu_torch.data.cache import CachedPatchDataset
     from exaspim_tpu_torch.inference import predict
     from exaspim_tpu_torch.ops.nb_bench import unet_conv_shapes
@@ -864,7 +929,7 @@ def training_path(train_dir, val_dir):
     epochs = TRAIN_STEPS // (N_TRAIN // 32)
     torch.cuda.reset_peak_memory_stats()
     nb_conv3d.launches = nb_conv3d_dw.launches = byte_histogram.launches = 0
-    nb_conv3d.reduce_launches = 0
+    nb_conv3d.reduce_launches = chunk_byte_histograms.launches = 0
     t0 = time.perf_counter()
     trainer = train([train_dir], [val_dir], os.path.join(WORK, "run"),
                     epochs=epochs, val_every=VAL_EVERY, log_every=1, **cfg)
@@ -873,7 +938,11 @@ def training_path(train_dir, val_dir):
     launches = {"nb_conv3d": nb_conv3d.launches,
                 "nb_conv3d_reduce": nb_conv3d.reduce_launches,
                 "nb_conv3d_dw": nb_conv3d_dw.launches,
-                "byte_histogram": byte_histogram.launches}
+                # Row 6: both entries of csrc/byte_histogram.cu; validation
+                # takes the byte planes from the volumes (the chunk entry).
+                "byte_histogram": byte_histogram.launches
+                + chunk_byte_histograms.launches,
+                "chunk_byte_histograms": chunk_byte_histograms.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_val = 2 * (-(-N_VAL // 32))  # validations x batches
     # The statistics' reduce runs for every forward conv with more than one
@@ -883,7 +952,8 @@ def training_path(train_dir, val_dir):
                   and _plan(32, n, n, n, segs, cout)["ws_rows"] > 1)
     want = {"nb_conv3d": 35 * TRAIN_STEPS + 18 * n_val,
             "nb_conv3d_reduce": reduced * (TRAIN_STEPS + n_val),
-            "nb_conv3d_dw": 18 * TRAIN_STEPS, "byte_histogram": n_val}
+            "nb_conv3d_dw": 18 * TRAIN_STEPS, "byte_histogram": n_val,
+            "chunk_byte_histograms": n_val}
     print(f"train(): {TRAIN_STEPS} steps + 2 validations in {wall:.2f} s; "
           f"launches {launches} (expected {want}); peak device memory "
           f"{peak_gb:.2f} GiB", flush=True)
@@ -1960,11 +2030,6 @@ def main():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from exaspim_tpu_torch.compression import (
-        BloscCodec,
-        blosc_available,
-        compute_cratio,
-    )
     from exaspim_tpu_torch.data.synthetic import (
         neurite_phantom,
         noisy_observation,
@@ -1972,7 +2037,6 @@ def main():
     from exaspim_tpu_torch.inference import plan_tiling, predict
     from exaspim_tpu_torch.ops import _build
     from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
-    from exaspim_tpu_torch.ops.ssim import psnr, ssim3d
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
     record = {}
@@ -2134,39 +2198,55 @@ def main():
         fail("the card's output strays from the f32 CPU path")
 
     phase("quality")
-    drange = float(clean.max())
-    clean_d = torch.from_numpy(clean).cuda()
-    noisy_d = torch.from_numpy(img.astype(np.float32)).cuda()
-    out_d = torch.from_numpy(out.astype(np.float32)).cuda()
+    # Scored through the port's quality check (ckpt_quality.score): PSNR,
+    # SSIM and, where an exact codec is installed, the blosc-zstd ratio.
+    from exaspim_tpu_torch.ckpt_quality import exact_codec, proxy_ratios
+    from exaspim_tpu_torch.ckpt_quality import score as quality_score
+    from exaspim_tpu_torch.compression.proxy import chunk_byte_histograms
+
+    codec, why = exact_codec()
+    s_noisy = quality_score(img, clean, codec, device="cuda")
+    s_out = quality_score(out, clean, codec, device="cuda")
     q = {
-        "psnr_noisy_db": float(psnr(noisy_d, clean_d, drange)),
-        "psnr_denoised_db": float(psnr(out_d, clean_d, drange)),
-        "ssim_noisy": float(ssim3d(noisy_d, clean_d, data_range=drange)),
-        "ssim_denoised": float(ssim3d(out_d, clean_d, data_range=drange)),
+        "psnr_noisy_db": s_noisy["psnr_db"],
+        "psnr_denoised_db": s_out["psnr_db"],
+        "ssim_noisy": s_noisy["ssim"],
+        "ssim_denoised": s_out["ssim"],
     }
     q["psnr_gain_db"] = q["psnr_denoised_db"] - q["psnr_noisy_db"]
     ok = q["ssim_denoised"] >= q["ssim_noisy"] and \
         q["psnr_gain_db"] >= MIN_PSNR_GAIN_DB
-    if blosc_available():
-        codec = BloscCodec(cname="zstd", clevel=6)
-        q["cratio_noisy"] = compute_cratio(img, codec)
-        q["cratio_denoised"] = compute_cratio(out, codec)
+    if codec is not None:
+        q["cratio_noisy"] = s_noisy["cratio"]
+        q["cratio_denoised"] = s_out["cratio"]
         q["cratio_gain"] = q["cratio_denoised"] / q["cratio_noisy"]
         ok = ok and q["cratio_gain"] >= MIN_CRATIO_GAIN
         print(f"cratio {q['cratio_noisy']} -> {q['cratio_denoised']} gain "
               f"{q['cratio_gain']:.4f} (>= {MIN_CRATIO_GAIN}; r05 "
               f"{REF_R05['cratio_gain']})")
     else:
-        print("cratio: unavailable (libblosc not found)")
+        print(f"cratio: unavailable ({why})")
     print(f"psnr {q['psnr_noisy_db']:.4f} -> {q['psnr_denoised_db']:.4f} dB "
           f"gain {q['psnr_gain_db']:.4f} (>= {MIN_PSNR_GAIN_DB}; r05 "
           f"{REF_R05['psnr_gain_db']})")
     print(f"ssim {q['ssim_noisy']:.6f} -> {q['ssim_denoised']:.6f} "
           f"(not lower; r05 {REF_R05['ssim_denoised']})", flush=True)
+    # The entropy proxy of the pair, from one histogram launch: printed
+    # beside the guard, not part of it.
+    chunk_byte_histograms.launches = 0
+    q["proxy_noisy"], q["proxy_denoised"] = proxy_ratios([img, out], "cuda")
+    q["proxy_gain"] = q["proxy_denoised"] / q["proxy_noisy"]
+    q["proxy_launches"] = chunk_byte_histograms.launches
+    print(f"entropy proxy {q['proxy_noisy']:.4f} -> "
+          f"{q['proxy_denoised']:.4f} gain {q['proxy_gain']:.4f} (in "
+          f"{q['proxy_launches']} chunk_byte_histograms launch; not in the "
+          "guard)", flush=True)
     record["quality"] = q
+    if q["proxy_launches"] != 1:
+        fail(f"the proxy of the pair made {q['proxy_launches']} launches")
     if not ok:
         fail(f"quality guard: {q}")
-    del model, cpu_model, clean_d, noisy_d, out_d
+    del model, cpu_model
     torch.cuda.empty_cache()
 
     phase("build (training kernels)")
@@ -2191,9 +2271,10 @@ def main():
 
     val_raw = to_tensor(np.asarray(CachedValidateDataset(val_dir)._raw[0]),
                         "cuda")
-    hist = check_histogram(counts_f32(val_raw).to(torch.int32))
+    pair = torch.from_numpy(np.stack([img, out]).astype(np.int32)).cuda()
+    hist = check_histogram(counts_f32(val_raw).to(torch.int32), pair)
     record["histogram_check"] = hist
-    del val_raw
+    del val_raw, pair
 
     phase("gradient check: full-width UNet 32^3 B=2")
     record["grad_check"] = grad_check()
@@ -2259,6 +2340,12 @@ def main():
     # bound summed over the 64³ raw patch and its stage-1 estimate. Row 5:
     # the same selection routine timed alone over a table (bm4d_select.cu)
     # on those two, beside its plain version and torch.topk.
+    # Row 6: the chunk entry, the one the path launches: its launches in the
+    # counted train() run (one a validation batch) and, apart, the quality
+    # phase's one; its ms and bound on a validation batch (32 x 64^3 int32).
+    # Under "entries", each entry with its own launches and times: the row
+    # entry (the TPU kernel's function, on the batch's 64 planes) makes none
+    # on the path.
     # Elementwise: one launch each on the 256³ block. Conv bench: launches of
     # the counted nb_bench.main run; ms and bounds summed over its three
     # shapes at batch 32, one application each (phase 14's times).
@@ -2282,13 +2369,28 @@ def main():
         "launches": runs["nb_conv3d_dw"],
         **per_step(dw_train["recs"], dw_train["counts"]),
     }, {
-        "name": "byte_histogram",
+        "name": "chunk_byte_histograms",
         "path": "training",
         "route": "cuda",
         "source": "exaspim_tpu_torch/csrc/byte_histogram.cu",
         "replaces": "exaspim_tpu/compression/proxy.py:58",
-        "launches": runs["byte_histogram"],
-        **per_step([hist], [1]),
+        "launches": runs["chunk_byte_histograms"],
+        "entries": {
+            "byte_histogram": {
+                "launches": runs["byte_histogram"]
+                - runs["chunk_byte_histograms"],
+                **{k: hist["validation batch"][k] for k in (
+                    "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+                    "library_ms", "bound_ms")}},
+            "chunk_byte_histograms": {
+                "launches": runs["chunk_byte_histograms"],
+                "quality_launches": record["quality"]["proxy_launches"],
+                **{k: hist["validation batch"]["chunk_entry"][k] for k in (
+                    "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+                    "library_ms", "bound_ms")}}},
+        **{k: hist["validation batch"]["chunk_entry"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }, {
         "name": "nb_conv3d (inference path)",
         "path": "inference",

@@ -10,11 +10,13 @@ Counts live in int32 tensors holding values 0..65535 (torch has no uint16
 arithmetic); the wrap-around z-delta is taken in int32 and masked with
 ``0xFFFF``, which keeps the same bytes as the reference's uint16 cast.
 
-The 256-bin byte histogram is the kernel: on a CUDA tensor
-:func:`byte_histogram` launches ``csrc/byte_histogram.cu`` (one launch for
-all rows) or raises; on a CPU tensor it runs :func:`byte_histogram_plain`.
-:func:`cratio_proxy_batch` histograms every chunk and plane of a batch of
-volumes in one launch.
+The 256-bin byte histogram is the kernel (``csrc/byte_histogram.cu``), in
+two entries: :func:`byte_histogram` counts the rows of a uint8 tensor, and
+:func:`chunk_byte_histograms` takes the lo and hi byte planes of every
+chunk's z-delta from a batch of count volumes itself, so no plane is built
+in memory. On a CUDA tensor each launches its kernel once (or raises); on
+a CPU tensor each runs its plain version. :func:`cratio_proxy_batch` makes
+one launch for every chunk and plane of a batch.
 """
 
 from __future__ import annotations
@@ -29,11 +31,29 @@ __all__ = [
     "chunk_entropy_bits",
     "byte_histogram",
     "byte_histogram_plain",
+    "chunk_byte_histograms",
+    "chunk_byte_histograms_plain",
 ]
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-_MAX_ROWS = 65535
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "byte_histogram_rows": [_P, _LL, _LL, _P, _P],
+    "byte_histogram_chunks": [_P, _LL, _I, _I, _I, _I, _P, _P],
+}
+_bound = {}
+
+
+def _entry(name):
+    """The C entry ``name`` of the kernel's library, bound once."""
+    fn = _bound.get(name)
+    if fn is None:
+        from exaspim_tpu_torch.ops._build import load_library
+
+        fn = getattr(load_library("byte_histogram"), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn
 
 
 def _byte_planes(chunks):
@@ -52,35 +72,36 @@ def byte_histogram_plain(rows_u8):
     ]).to(torch.float32)
 
 
-def _launch(rows_u8):
-    from exaspim_tpu_torch.ops._build import load_library
+def _stream(t):
+    # The raw handle, as Triton's launcher takes it: a fraction of the host
+    # time of building a torch.cuda.Stream object on every call.
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
-    n, length = rows_u8.shape
-    if n > _MAX_ROWS:
-        raise ValueError(f"at most {_MAX_ROWS} rows per launch, got {n}")
-    if rows_u8.data_ptr() % 16:
-        rows_u8 = rows_u8.clone()  # a fresh allocation is 16-byte aligned
-    counts = torch.empty((n, 256), dtype=torch.int32, device=rows_u8.device)
-    out = torch.empty((n, 256), dtype=torch.float32, device=rows_u8.device)
-    fn = load_library("byte_histogram").byte_histogram_u8
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(rows_u8.device):
-        stream = torch.cuda.current_stream(rows_u8.device).cuda_stream
-        rc = fn(rows_u8.data_ptr(), n, length, counts.data_ptr(),
-                out.data_ptr(), stream)
+
+def _check_rc(rc, name):
     if rc != 0:
-        raise RuntimeError(
-            f"byte_histogram kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _launch_rows(rows_u8):
+    n, length = rows_u8.shape
+    out = torch.empty((n, 256), dtype=torch.float32, device=rows_u8.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(rows_u8.device):
+        rc = _entry("byte_histogram_rows")(
+            rows_u8.data_ptr(), n, length, out.data_ptr(), _stream(rows_u8))
+    _check_rc(rc, "byte_histogram")
     byte_histogram.launches += 1
     return out
 
 
 def byte_histogram(rows_u8):
     """256-bin histograms of the rows of a ``(n, L)`` uint8 tensor → f32
-    ``(n, 256)``. CUDA tensors go through ``csrc/byte_histogram.cu`` and
-    count one launch in ``byte_histogram.launches``; CPU tensors go
-    through :func:`byte_histogram_plain`."""
+    ``(n, 256)``. CUDA tensors go through ``csrc/byte_histogram.cu`` (one
+    launch, any n, any L, any base address) and count it in
+    ``byte_histogram.launches``; CPU tensors go through
+    :func:`byte_histogram_plain`."""
     if rows_u8.dtype != torch.uint8 or rows_u8.dim() != 2:
         raise ValueError(f"expected (n, L) uint8, got {rows_u8.dtype} "
                          f"{tuple(rows_u8.shape)}")
@@ -89,10 +110,79 @@ def byte_histogram(rows_u8):
         return byte_histogram_plain(rows_u8)
     if rows_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {rows_u8.device}")
-    return _launch(rows_u8)
+    return _launch_rows(rows_u8)
 
 
 byte_histogram.launches = 0
+
+
+def _chunk_grid(shape, chunk):
+    """The reference's chunk walk over ``(Z, Y, X)``: the chunk shrunk to
+    fit the smallest extent, and the number of whole chunks along each
+    axis (trailing partial chunks dropped)."""
+    chunk = min(chunk, *shape)
+    return chunk, tuple(s // chunk for s in shape)
+
+
+def _chunks(vols, chunk):
+    """``(B, Z, Y, X)`` → ``(B, n_chunks, c, c, c)``, the reference's
+    chunk walk (trailing partial chunks dropped, chunk shrunk to fit)."""
+    b = vols.shape[0]
+    chunk, (nz, ny, nx) = _chunk_grid(vols.shape[1:], chunk)
+    v = vols[:, :nz * chunk, :ny * chunk, :nx * chunk]
+    return (v.reshape(b, nz, chunk, ny, chunk, nx, chunk)
+            .permute(0, 1, 3, 5, 2, 4, 6)
+            .reshape(b, nz * ny * nx, chunk, chunk, chunk))
+
+
+def chunk_byte_histograms_plain(vols, chunk=64):
+    """Plain version of :func:`chunk_byte_histograms`: the chunks copied
+    out, their byte planes built, one ``torch.bincount`` per plane."""
+    ch = _chunks(vols, chunk)
+    b, nc = ch.shape[:2]
+    lo, hi = _byte_planes(ch)
+    rows = torch.stack([lo, hi], dim=2).reshape(b * nc * 2, -1)
+    return byte_histogram_plain(rows).reshape(b, nc, 2, 256)
+
+
+def _launch_chunks(vols, chunk):
+    b, z, y, x = vols.shape
+    chunk, grid = _chunk_grid((z, y, x), chunk)
+    nc = grid[0] * grid[1] * grid[2]
+    out = torch.empty((b, nc, 2, 256), dtype=torch.float32,
+                      device=vols.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(vols.device):
+        rc = _entry("byte_histogram_chunks")(
+            vols.data_ptr(), b, z, y, x, chunk, out.data_ptr(), _stream(vols))
+    _check_rc(rc, "chunk_byte_histograms")
+    chunk_byte_histograms.launches += 1
+    return out
+
+
+def chunk_byte_histograms(vols, chunk=64):
+    """Lo and hi byte histograms of the z-delta (uint16 wrap, each chunk's
+    first plane kept as is) of every chunk of a ``(B, Z, Y, X)`` int32
+    batch of counts → f32 ``(B, n_chunks, 2, 256)``, chunks in (z, y, x)
+    order as :func:`_chunks` walks them. CUDA tensors go through
+    ``csrc/byte_histogram.cu`` (one launch, read from the volumes
+    themselves) and count it in ``chunk_byte_histograms.launches``; CPU
+    tensors go through :func:`chunk_byte_histograms_plain`."""
+    if vols.dtype != torch.int32 or vols.dim() != 4:
+        raise ValueError(f"expected (B, Z, Y, X) int32, got {vols.dtype} "
+                         f"{tuple(vols.shape)}")
+    if min(vols.shape[1:]) < 1 or chunk < 1:
+        raise ValueError(f"no chunk of {chunk} in {tuple(vols.shape)}")
+    vols = vols.contiguous()
+    if vols.device.type == "cpu":
+        return chunk_byte_histograms_plain(vols, chunk)
+    if vols.device.type != "cuda":
+        raise ValueError(f"unsupported device {vols.device}")
+    return _launch_chunks(vols, chunk)
+
+
+chunk_byte_histograms.launches = 0
 
 
 def _entropy_bits(counts):
@@ -110,29 +200,15 @@ def chunk_entropy_bits(chunk):
     return _entropy_bits(counts).sum()
 
 
-def _chunks(vols, chunk):
-    """``(B, Z, Y, X)`` → ``(B, n_chunks, c, c, c)``, the reference's
-    chunk walk (trailing partial chunks dropped, chunk shrunk to fit)."""
-    b, z, y, x = vols.shape
-    chunk = min(chunk, z, y, x)
-    nz, ny, nx = (max(s // chunk, 1) for s in (z, y, x))
-    v = vols[:, :nz * chunk, :ny * chunk, :nx * chunk]
-    return (v.reshape(b, nz, chunk, ny, chunk, nx, chunk)
-            .permute(0, 1, 3, 5, 2, 4, 6)
-            .reshape(b, nz * ny * nx, chunk, chunk, chunk))
-
-
 def cratio_proxy_batch(vols, chunk=64):
     """Proxy ratio of each volume of a ``(B, Z, Y, X)`` batch of counts
     (any integer dtype holding 0..65535) → f32 ``(B,)``. One histogram
     launch covers every chunk and byte plane of the batch."""
     vols = vols.to(torch.int32)
-    ch = _chunks(vols, chunk)
-    b, nc = ch.shape[:2]
-    lo, hi = _byte_planes(ch)
-    rows = torch.stack([lo, hi], dim=2).reshape(b * nc * 2, -1)
-    bits = _entropy_bits(byte_histogram(rows)).reshape(b, nc * 2)
-    raw_bits = float(ch[0].numel() * 16)
+    counts = chunk_byte_histograms(vols, chunk)
+    bits = _entropy_bits(counts).reshape(counts.shape[0], -1)
+    c, (nz, ny, nx) = _chunk_grid(vols.shape[1:], chunk)
+    raw_bits = float(nz * ny * nx * c ** 3 * 16)
     return raw_bits / torch.clamp(bits.sum(dim=1), min=1.0)
 
 

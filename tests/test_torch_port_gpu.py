@@ -108,6 +108,55 @@ def test_histogram_kernel_matches_plain():
         assert torch.equal(byte_histogram(v), byte_histogram_plain(v))
 
 
+HIST_CASES = ("one repeated byte", "uniform bytes", "noisy phantom planes",
+              "wrap at 0 and 65535", "lengths no multiple of 16",
+              "27^3 chunk", "more rows than 65535", "misaligned base")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_histogram_entries_match_plain_and_repeat_bit_equal(case):
+    """Both entries of csrc/byte_histogram.cu against their plain versions
+    (integer counts: exactly equal), each launch once per call, and a
+    second launch bit-equal to the first."""
+    _card()
+    from exaspim_tpu_torch.compression import proxy as P
+    from exaspim_tpu_torch.ops.hist_bench import edge_cases
+
+    rows, vols, chunk = edge_cases("cuda")[case]
+    n_rows, n_chunks = P.byte_histogram.launches, \
+        P.chunk_byte_histograms.launches
+    got = P.byte_histogram(rows)
+    got_c = P.chunk_byte_histograms(vols, chunk)
+    assert P.byte_histogram.launches == n_rows + 1
+    assert P.chunk_byte_histograms.launches == n_chunks + 1
+    assert torch.equal(got, P.byte_histogram_plain(rows))
+    assert torch.equal(got_c, P.chunk_byte_histograms_plain(vols, chunk))
+    assert torch.equal(P.byte_histogram(rows), got)
+    assert torch.equal(P.chunk_byte_histograms(vols, chunk), got_c)
+
+
+@pytest.mark.gpu
+def test_histogram_call_is_one_kernel_launch():
+    """One call of either entry enqueues one kernel and nothing else (no
+    memset, no conversion kernel, no copy: a misaligned input is not
+    cloned), read from the call captured in a CUDA graph; the proxy's one
+    histogram launch is its only byte-histogram node."""
+    _card()
+    from exaspim_tpu_torch.compression import proxy as P
+    from exaspim_tpu_torch.ops.hist_bench import device_ops, edge_cases
+
+    rows, vols, chunk = edge_cases("cuda")["misaligned base"]
+    for fn in (lambda: P.byte_histogram(rows),
+               lambda: P.chunk_byte_histograms(vols, chunk)):
+        ops = device_ops(fn)
+        assert len(ops) == 1 and ops[0][0] == "kernel", ops
+        assert "byte_histogram" in ops[0][1]
+    ops = device_ops(lambda: P.cratio_proxy_batch(vols, chunk))
+    assert len([op for op in ops if "byte_histogram" in (op[1] or "")]) == 1
+    assert not [op for op in ops if op[0] == "memcpy"], ops
+
+
 @pytest.mark.gpu
 def test_autograd_through_kernels_matches_plain():
     _card()

@@ -111,10 +111,12 @@ def test_streaming_equals_single_pass(models):
 def test_entry_points_default_to_the_card():
     for fn in (ti.predict, ti.predict_patch, ti.trim_weight_mask):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    from exaspim_tpu_torch import ckpt_quality
     from exaspim_tpu_torch.models import build_model
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
-    for fn in (build_model, restore_pipeline):
+    for fn in (build_model, restore_pipeline, ckpt_quality.quality_records,
+               ckpt_quality.score, ckpt_quality.proxy_ratios):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

@@ -1,8 +1,12 @@
 """The port's compressibility proxy and validation metrics against JAX.
 
 ``byte_histogram`` (plain version on the CPU) equals the reference's
-scatter-add histogram (its Pallas histogram has no CPU mode); the proxy
-ratio agrees to 1e-5 relative (f32 entropy sums in another order); the
+scatter-add histogram (its Pallas histogram has no CPU mode), and
+``chunk_byte_histograms`` (plain version) equals the reference's
+``_byte_planes`` + ``_histogram_jnp`` on every chunk, exactly, on the
+kernel's edge cases (``ops/hist_bench.edge_cases``, which the card's tests
+run through the kernel); the proxy ratio agrees to 1e-5 relative (f32
+entropy sums in another order); the
 device metrics agree with ``evaluate_batch`` to 1e-5 relative, including
 medians of even-length inputs (the mean of the two middle values, as
 ``jnp.median``); the host oracle and the score are equal.
@@ -21,6 +25,79 @@ from exaspim_tpu.ops import metrics_device as jmd
 from exaspim_tpu_torch.compression import proxy as tp
 from exaspim_tpu_torch.ops import metrics as tm
 from exaspim_tpu_torch.ops import metrics_device as tmd
+
+
+@pytest.fixture(scope="module")
+def edge_cases():
+    from exaspim_tpu_torch.ops.hist_bench import edge_cases
+
+    return edge_cases("cpu")
+
+
+def _jax_chunk_histograms(vols, chunk):
+    """The reference's chunk walk, then per chunk ``_byte_planes`` and
+    ``_histogram_jnp`` of each plane → ``(B, n_chunks, 2, 256)``."""
+    b, z, y, x = vols.shape
+    c = min(chunk, z, y, x)
+    nz, ny, nx = z // c, y // c, x // c
+    ch = (vols[:, :nz * c, :ny * c, :nx * c].astype(np.uint16)
+          .reshape(b, nz, c, ny, c, nx, c).transpose(0, 1, 3, 5, 2, 4, 6)
+          .reshape(-1, c, c, c))
+    per = jax.jit(jax.vmap(lambda v: jnp.stack(
+        [jp._histogram_jnp(p) for p in jp._byte_planes(v)])))
+    return np.asarray(per(jnp.asarray(ch))).reshape(b, nz * ny * nx, 2, 256)
+
+
+EDGE_CASES = ("one repeated byte", "uniform bytes", "noisy phantom planes",
+              "wrap at 0 and 65535", "lengths no multiple of 16",
+              "27^3 chunk", "more rows than 65535", "misaligned base")
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_histogram_entries_equal_jax_per_chunk_and_row(edge_cases, case):
+    rows, vols, chunk = edge_cases[case]
+    got = tp.chunk_byte_histograms(vols, chunk)
+    want = _jax_chunk_histograms(vols.numpy(), chunk)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tp.byte_histogram(rows).numpy(),
+        np.asarray(jax.jit(jax.vmap(jp._histogram_jnp))(
+            jnp.asarray(rows.numpy()))))
+
+
+@pytest.mark.parametrize("case,chunk", [
+    ("wrap at 0 and 65535", 8), ("lengths no multiple of 16", 16),
+    ("27^3 chunk", 64), ("noisy phantom planes", 32)])
+def test_cratio_proxy_batch_matches_jax_on_edge_cases(edge_cases, case,
+                                                      chunk):
+    vols = edge_cases[case][1]
+    want = [float(jp.cratio_proxy(jnp.asarray(v.numpy().astype(np.uint16)),
+                                  chunk=chunk)) for v in vols]
+    got = tp.cratio_proxy_batch(vols, chunk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_chunk_entry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="int32"):
+        tp.chunk_byte_histograms(torch.zeros(1, 8, 8, 8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="int32"):
+        tp.chunk_byte_histograms(torch.zeros(8, 8, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="uint8"):
+        tp.byte_histogram(torch.zeros(2, 8, dtype=torch.int32))
+
+
+def test_hist_bench_runs_on_the_cpu():
+    from exaspim_tpu_torch.ops import hist_bench
+
+    out = hist_bench.main(["--block", "32", "--reps", "1"], device="cpu")
+    val, pair = out["workloads"]
+    assert val["rows"] == [2, 32 ** 3] and pair["rows"] == [4, 32 ** 3]
+    for w in (val, pair):
+        assert w["chunk_entry"]
+        assert w["byte_histogram"]["bound_by"] == "bytes"
+        assert w["chunk_byte_histograms"]["bound_ms"] > \
+            w["byte_histogram"]["bound_ms"]
 
 
 @pytest.fixture(scope="module")
