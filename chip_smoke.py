@@ -112,13 +112,30 @@ line:
     128³ crops and ``UnsupervisedEvaluator.run`` on four 64³ voxels;
     without one, the codec-free half on the same four voxels (BM4D ground
     truth, ``predict_patch``, SSIM, MAE, L∞); fused matcher launches
-    counted (two per ground truth).
+    counted (two per ground truth);
+18. demo: ``demo_end_to_end.main`` at its defaults (256 train and 16 val
+    64³ patches with BM4D teachers, 8 epochs at batch 16, width 1.0, bf16,
+    the held-out 128³ block), the loss read every step for the trend
+    guard; stage seconds, the summary, the counted launches of
+    ``match_topk``, ``nb_conv3d`` (and its reduce), ``nb_conv3d_dw`` and
+    ``chunk_byte_histograms`` during the run, peak device memory. Fails
+    unless the losses are finite and fall, PSNR and SSIM are finite, the
+    proxy gain is finite and above 1, and each of the four kernels
+    launched; the guard's thresholds are not claimed at this size;
+19. resume and augmentation on phase 18's caches: ``train()`` for 2
+    epochs straight (twice: the card's own run-to-run spread), against 1
+    epoch that writes ``latest_state.ckpt`` and is stopped there, then
+    ``Trainer.run(resume_state=)`` for the second epoch: final params within
+    ``RESUME_ATOL`` (the max |Δ| and whether bit-equal printed); one
+    ``augment=True`` run of an epoch whose applied orientation codes
+    equal ``orientation_code(seed, step)`` and whose losses are finite.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
 
 import contextlib
+import glob
 import json
 import os
 import re
@@ -226,6 +243,14 @@ PIPE_N, PIPE_MAX_BLOCK = 512, 87_000_000
 # (csrc/nb_conv3d.cu). On an H100 the ops around the kernel (the 1x1 head,
 # resize, GroupNorm's finalize) gave the same bits in every batch as well.
 EVAL_VOXELS = ((0, 0, 0), (64, 96, 128), (192, 64, 32), (128, 192, 192))
+# Resume (phase 19): final params of 1 epoch + resume + 1 epoch against 2
+# epochs straight, absolute. A tenth of the learning rate, the most one
+# Adam step moves a parameter: a resume that lost the moments, the step
+# (the schedule, the epoch's permutation) or a batch moves params by about
+# one step's size or more; the same updates rounded otherwise on the card
+# stay orders below it.
+RESUME_ATOL = 1e-4
+DEMO_BATCH = 16  # demo_end_to_end's --batch-size
 
 _T0 = time.time()
 
@@ -551,19 +576,24 @@ def check_histogram(val_vols, pair):
 
 
 @contextlib.contextmanager
+def swapped(obj, **attrs):
+    """Replace attributes of ``obj`` for the duration."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
 def patched(**attrs):
     """Replace attributes of ``exaspim_tpu_torch.ops.nb_conv`` for the
     duration (the harness's shape recorder and planted faults)."""
     from exaspim_tpu_torch.ops import nb_conv
 
-    old = {k: getattr(nb_conv, k) for k in attrs}
-    for k, v in attrs.items():
-        setattr(nb_conv, k, v)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            setattr(nb_conv, k, v)
+    return swapped(nb_conv, **attrs)
 
 
 def launch_shapes(run):
@@ -1960,6 +1990,169 @@ def evaluation_path(img, clean, ckpt):
     return rec
 
 
+def run_events(out):
+    """The events of the one training session under ``out``."""
+    (log,) = glob.glob(os.path.join(out, "session-*", "log.jsonl"))
+    with open(log) as f:
+        return [json.loads(line) for line in f]
+
+
+def demo_path():
+    """Phase 18 (see the module docstring). Returns the record and the
+    caches' directories."""
+    import functools
+
+    import torch
+
+    from exaspim_tpu_torch import demo_end_to_end as demo
+    from exaspim_tpu_torch.compression.proxy import chunk_byte_histograms
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.train import train_bm4dnet
+
+    out = os.path.join(WORK, "demo")
+    shutil.rmtree(out, ignore_errors=True)
+    counters = (match_topk, nb_conv3d, nb_conv3d_dw, chunk_byte_histograms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    nb_conv3d.reduce_launches = 0
+    # The demo's flags at their defaults; the loss read at every step
+    # (log_every=1, not the default 50) so that the trend has 128 points.
+    every_step = functools.partial(train_bm4dnet.train, log_every=1)
+    t0 = time.perf_counter()
+    with swapped(train_bm4dnet, train=every_step):
+        summary = demo.main(["--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    launches["nb_conv3d_reduce"] = nb_conv3d.reduce_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [e["loss"] for e in run_events(os.path.join(out, "run"))
+              if e["event"] == "train"]
+    stages = {k: summary[k] for k in ("cache_build_s", "train_s",
+                                      "predict_128c_s")}
+    print(f"demo in {wall:.1f} s; stages {stages}", flush=True)
+    print(json.dumps(summary), flush=True)
+    print(f"launches during the demo {launches}; peak device memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    print(f"losses: first {losses[:3]}, last {losses[-3:]} "
+          f"({len(losses)} steps)", flush=True)
+    scores = [summary[k] for k in (
+        "psnr_vs_clean_raw", "psnr_vs_clean_denoised", "ssim_vs_clean_raw",
+        "ssim_vs_clean_denoised")]
+    gain = summary["cratio_proxy_gain"]
+    if not losses or not np.all(np.isfinite(losses)) \
+            or not np.mean(losses[-3:]) < losses[0]:
+        fail(f"demo losses: {losses}")
+    if not np.all(np.isfinite(scores)):
+        fail(f"demo PSNR / SSIM not finite: {scores}")
+    if not (np.isfinite(gain) and gain > 1.0):
+        fail(f"demo proxy gain {gain}")
+    idle = [k for k, v in launches.items() if k != "nb_conv3d_reduce"
+            and v < 1]
+    if idle:
+        fail(f"the demo never launched {idle}")
+    return {"wall_s": wall, "summary": summary, "launches": launches,
+            "peak_mem_gb": peak_gb, "losses": losses}, (
+        os.path.join(out, "cache_train"), os.path.join(out, "cache_val"))
+
+
+def resume_path(train_dir, val_dir):
+    """Phase 19 (see the module docstring) on phase 18's caches."""
+    import torch
+
+    from exaspim_tpu_torch.data.cache import (
+        CachedPatchDataset,
+        CachedValidateDataset,
+        load_cache_transform,
+    )
+    from exaspim_tpu_torch.models import UNet
+    from exaspim_tpu_torch.train import state as ts
+    from exaspim_tpu_torch.train.train_bm4dnet import (
+        CHECKPOINT_WEIGHTS,
+        train,
+    )
+    from exaspim_tpu_torch.train.trainer import Trainer
+    from exaspim_tpu_torch.transforms import build_transform
+
+    steps = len(CachedPatchDataset([train_dir])) // DEMO_BATCH
+    cfg = dict(batch_size=DEMO_BATCH, val_every=steps, seed=42,
+               max_val_examples=8, exact_cratio_examples=0, device="cuda")
+
+    def params(trainer):
+        return {k: v.detach().float().cpu().clone()
+                for k, v in trainer.state.params.items()}
+
+    def gap(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    t0 = time.perf_counter()
+    straight = [params(train([train_dir], [val_dir], os.path.join(
+        WORK, f"straight{i}"), epochs=2, **cfg)) for i in range(2)]
+
+    class Preempted(Exception):
+        pass
+
+    save = Trainer.validate_and_checkpoint
+
+    def preempt(self, *args):
+        save(self, *args)
+        raise Preempted
+
+    cut = os.path.join(WORK, "cut")
+    with swapped(Trainer, validate_and_checkpoint=preempt):
+        try:
+            train([train_dir], [val_dir], cut, epochs=2, **cfg)
+        except Preempted:
+            pass
+        else:
+            fail("the preempted run did not stop at its first validation")
+    (latest,) = glob.glob(os.path.join(cut, "session-*", "checkpoints",
+                                       "latest_state.ckpt"))
+    transform = build_transform(load_cache_transform([train_dir, val_dir]))
+    resumed = Trainer(os.path.join(WORK, "resumed"),
+                      UNet(width_multiplier=1.0, dtype=torch.bfloat16),
+                      transform, epochs=2, lr=1e-3,
+                      checkpoint_weights=CHECKPOINT_WEIGHTS, **cfg)
+    resumed.state = resumed.run(CachedPatchDataset([train_dir]),
+                                CachedValidateDataset([val_dir]),
+                                resume_state=latest)
+    got = params(resumed)
+    d_runs, d_resume = gap(straight[0], straight[1]), gap(straight[0], got)
+    bit_equal = all(torch.equal(straight[0][k], got[k]) for k in got)
+    print(f"2 epochs ({2 * steps} steps) straight vs 1 + resume + 1: max "
+          f"|d| {d_resume:.3e} (bit-equal: {bit_equal}); two straight runs "
+          f"max |d| {d_runs:.3e}; limit {RESUME_ATOL}", flush=True)
+    if resumed.state.step != 2 * steps or not d_resume <= RESUME_ATOL:
+        fail(f"resume: step {resumed.state.step}, max |d| {d_resume}")
+    resume_s = time.perf_counter() - t0
+
+    codes, orient = [], ts.orient_batch
+
+    def spy(batch, code):
+        codes.append(code)
+        return orient(batch, code)
+
+    with swapped(ts, orient_batch=spy):
+        t = train([train_dir], [val_dir], os.path.join(WORK, "augment"),
+                  epochs=1, augment=True, log_every=1, **cfg)
+    want = [ts.orientation_code(42, i) for i in range(steps)]
+    losses = [e["loss"] for e in run_events(t.output_dir)
+              if e["event"] == "train"]
+    print(f"augment=True: {steps} steps, codes {codes}, losses "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    if codes != want:
+        fail(f"augment applied the codes {codes}, expected {want}")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"augmented losses {losses}")
+    return {"steps_per_epoch": steps, "resume_max_abs": d_resume,
+            "resume_bit_equal": bit_equal, "runs_max_abs": d_runs,
+            "resume_s": resume_s, "augment_codes": codes,
+            "augment_losses": losses}
+
+
 def print_ptxas(build, name):
     for line in build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
@@ -2323,6 +2516,15 @@ def main():
     phase("evaluation: BM4D ground truth and metrics on four 64^3 voxels")
     record["evaluation"] = evaluation_path(img, clean, CKPT)
     shutil.rmtree(WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    phase("demo: demo_end_to_end.main at its defaults")
+    record["demo"], (demo_train, demo_val) = demo_path()
+    torch.cuda.empty_cache()
+
+    phase("resume and augmentation: train() on the demo's caches")
+    record["resume"] = resume_path(demo_train, demo_val)
+    shutil.rmtree(WORK, ignore_errors=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
@@ -2441,6 +2643,15 @@ def main():
         "launches": bench["launches"]["blocked_conv3d"],
         **per_step(blocked_times, [1] * len(blocked_times)),
     }]
+    # The demo's run (phase 18), counted apart: rows 1-3 and 6 in its
+    # training, validation and held-out predict, rows 4-5 in its teachers.
+    demo = record["demo"]["launches"]
+    for k in kernels:
+        key = {"nb_conv3d": "nb_conv3d", "nb_conv3d_dw": "nb_conv3d_dw",
+               "chunk_byte_histograms": "chunk_byte_histograms",
+               "bm4d_match_topk": "match_topk"}.get(k["name"])
+        if key is not None:
+            k["demo_launches"] = demo[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -178,8 +178,9 @@ def _pack(out, obj):
             _pack(out, k)
             _pack(out, v)
     elif isinstance(obj, np.ndarray):
-        a = np.ascontiguousarray(obj)
-        payload = packb([list(a.shape), a.dtype.name, a.tobytes()])
+        # tobytes() is row-major for any layout; shape () stays () (not
+        # ascontiguousarray, which makes a 0-d array 1-d).
+        payload = packb([list(obj.shape), obj.dtype.name, obj.tobytes()])
         n = len(payload)
         if n in _FIXEXT:
             out.append(bytes([_FIXEXT[n]]))

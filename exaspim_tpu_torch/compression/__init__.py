@@ -8,6 +8,7 @@ from exaspim_tpu_torch.compression.blosc import (
     blosc_available,
 )
 from exaspim_tpu_torch.compression.cratio import compute_cratio
+from exaspim_tpu_torch.compression.proxy import cratio_proxy
 
 __all__ = [
     "BloscCodec",
@@ -15,4 +16,5 @@ __all__ = [
     "best_codec",
     "blosc_available",
     "compute_cratio",
+    "cratio_proxy",
 ]

@@ -1,21 +1,25 @@
-"""Count-space validation metrics, host side (numpy), and the checkpoint
-score.
+"""Count-space validation metrics, host side (numpy), the foreground mask
+and the checkpoint score.
 
 Copies of the validation part of ``exaspim_tpu/ops/metrics.py``
-(``:23-239``): the robust brightness threshold, foreground/background MAE,
-MIP max error, false-bright rate, the per-example metric dict and the
-weighted checkpoint score. The Trainer scores checkpoints with
-:func:`checkpoint_score`; :func:`evaluate_example` is the oracle that the
-device metrics (:mod:`exaspim_tpu_torch.ops.metrics_device`) are held to.
+(``:23-239``): the robust brightness threshold, the foreground mask,
+foreground/background MAE, MIP max error, false-bright rate, the
+per-example metric dict and the weighted checkpoint score. The Trainer
+scores checkpoints with :func:`checkpoint_score`; :func:`evaluate_example`
+is the oracle that the device metrics
+(:mod:`exaspim_tpu_torch.ops.metrics_device`) are held to.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "DEFAULT_CHECKPOINT_WEIGHTS",
     "robust_brightness_threshold",
+    "tensor_brightness_threshold",
+    "make_foreground_mask",
     "foreground_background_mae",
     "mip_max_error",
     "false_bright_rate",
@@ -39,6 +43,48 @@ def robust_brightness_threshold(img, k=6.0):
     center = np.median(flat)
     scale = 1.4826 * np.median(np.abs(flat - center)) + 1e-6
     return float(center + k * scale)
+
+
+def _median(flat):
+    """numpy's median of a 1-D f64 tensor: the middle value, or the mean
+    of the two middle values (their f64 sum halved)."""
+    n = flat.numel()
+    hi = flat.kthvalue(n // 2 + 1).values
+    if n % 2:
+        return hi
+    return (flat.kthvalue(n // 2).values + hi) / 2
+
+
+def tensor_brightness_threshold(img, k=6.0):
+    """:func:`robust_brightness_threshold` of a tensor, taken on its device
+    in f64 with the same operations (equal to numpy's)."""
+    flat = img.reshape(-1).to(torch.float64)
+    center = _median(flat).item()
+    scale = 1.4826 * _median((flat - center).abs()).item() + 1e-6
+    return float(center + k * scale)
+
+
+def make_foreground_mask(raw, k=6.0, dilate=1):
+    """Robust intensity foreground mask (above the median + ``k`` · 1.4826 ·
+    MAD threshold), dilated ``dilate`` times with the face-connected cross.
+
+    An ndarray gives an ndarray and a tensor a tensor on its device. On the
+    host the threshold is numpy's, as the JAX package computes it; on the
+    card it is taken there in f64 with numpy's median (the same
+    operations), so the mask is the same bit for bit."""
+    from exaspim_tpu_torch.ops.filters import binary_dilation
+
+    if isinstance(raw, torch.Tensor) and raw.device.type != "cpu":
+        mask = raw.to(torch.float64) > tensor_brightness_threshold(raw, k)
+    else:
+        host = raw.numpy() if isinstance(raw, torch.Tensor) else raw
+        mask = torch.from_numpy(
+            np.asarray(host) > robust_brightness_threshold(host, k=k))
+    if dilate:
+        mask = binary_dilation(mask, iterations=dilate)
+    if isinstance(raw, torch.Tensor):
+        return mask
+    return mask.numpy()
 
 
 def foreground_background_mae(pred, ref, fg_mask):

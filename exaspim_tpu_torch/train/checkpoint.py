@@ -1,12 +1,21 @@
 """Read and write ``exaspim_tpu.ckpt.v1`` checkpoints; carry weights
 between the Flax param tree and the port's state dict.
 
-Counterpart of ``exaspim_tpu/train/checkpoint.py:38-116``. The file is
+Counterpart of ``exaspim_tpu/train/checkpoint.py:38-158``. The file is
 Flax msgpack, written and read by the package's own pure-Python codec
 (:mod:`exaspim_tpu_torch._msgpack`), so neither ``flax`` nor ``msgpack``
 is needed, and checkpoints swap both ways with the JAX package. Scored
 checkpoints are named ``BM4DNet-<date>-<step>-<score>.ckpt`` (lower is
-better). Full-state (optimizer) checkpoints for resume are later work.
+better).
+
+Full-state checkpoints (``exaspim_tpu.trainstate.v1``, for resume) hold
+the train state as Flax stores the reference's ``TrainState``: ``step``,
+``params`` (the Flax tree) and ``opt_state``, the state of optax's
+``adamw`` chain, ``{"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}``
+(Adam's moments, the weight decay's empty state, the schedule's count).
+torch's AdamW keeps the same numbers per parameter: ``exp_avg`` is ``mu``,
+``exp_avg_sq`` is ``nu`` and its ``step`` is ``count``. So a state written
+by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ __all__ = [
     "params_from_flax",
     "params_to_flax",
     "restore_pipeline",
+    "save_train_state",
+    "restore_train_state",
+    "read_train_state",
+    "load_train_state",
 ]
 
 _SCORE_RE = re.compile(
@@ -62,13 +75,7 @@ def save_checkpoint(path, params, model_config, transform_cfg, step=0,
             "format": "exaspim_tpu.ckpt.v1",
         }),
     }
-    blob = packb(payload)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(blob)
-    os.replace(tmp, path)  # atomic publish
-    return path
+    return _write_atomic(path, packb(payload))
 
 
 def load_checkpoint(path):
@@ -159,3 +166,85 @@ def restore_pipeline(path, dtype=torch.bfloat16, device="cuda"):
     model = build_model(ckpt["model_config"], dtype=dtype, device=device)
     model.load_state_dict(params_from_flax(ckpt["params"]))
     return model, build_transform(ckpt["transform"])
+
+
+def _write_atomic(path, blob):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)  # atomic publish
+    return path
+
+
+def _moments(state):
+    """``(count, mu, nu)`` of the AdamW state as Flax trees (zeros and 0
+    before the first update)."""
+    named = dict(state.model.named_parameters())
+    slots = [state.optimizer.state.get(p, {}) for p in named.values()]
+    count = int(slots[0]["step"]) if slots[0] else 0
+    mu, nu = {}, {}
+    for (name, p), slot in zip(named.items(), slots):
+        mu[name] = slot.get("exp_avg", torch.zeros_like(p))
+        nu[name] = slot.get("exp_avg_sq", torch.zeros_like(p))
+    return count, params_to_flax(mu), params_to_flax(nu)
+
+
+def save_train_state(path, state, model_config, transform_cfg, extra=None):
+    """Write the full train state (params, AdamW moments and counts, step)
+    for resume, in the JAX package's ``exaspim_tpu.trainstate.v1`` file."""
+    count, mu, nu = _moments(state)
+    counter = np.asarray(count, np.int32)
+    payload = {
+        "state": {
+            "step": np.asarray(state.step, np.int32),
+            "params": params_to_flax(state.model.state_dict()),
+            "opt_state": {
+                "0": {"count": counter, "mu": mu, "nu": nu},
+                "1": {},
+                "2": {"count": counter},
+            },
+        },
+        "meta": json.dumps({
+            "model_config": model_config,
+            "transform": transform_cfg,
+            "step": int(state.step),
+            "extra": extra or {},
+            "format": "exaspim_tpu.trainstate.v1",
+        }),
+    }
+    return _write_atomic(path, packb(payload))
+
+
+def read_train_state(path):
+    """``(tree, meta)`` of a full-state checkpoint: the stored train state
+    (numpy leaves) and its metadata, nothing loaded yet."""
+    with open(path, "rb") as f:
+        payload = unpackb(f.read())
+    return payload["state"], json.loads(payload["meta"])
+
+
+def load_train_state(state, tree):
+    """Load a stored train state (:func:`read_train_state`) into
+    ``state``: params, AdamW moments and counts, step."""
+    adam = next(v for v in tree["opt_state"].values() if "mu" in v)
+    count = int(adam["count"])
+    mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
+    state.model.load_state_dict(params_from_flax(tree["params"]))
+    slots = state.optimizer.state
+    for name, p in state.model.named_parameters():
+        slots[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
+    state.step = int(tree["step"])
+    return state
+
+
+def restore_train_state(path, state):
+    """Restore a full-state checkpoint into ``state`` (a freshly built
+    :class:`~exaspim_tpu_torch.train.state.TrainState` of the same model
+    and optimizer settings); returns ``(state, meta)``."""
+    tree, meta = read_train_state(path)
+    return load_train_state(state, tree), meta

@@ -8,9 +8,13 @@ eager PyTorch: forward, ``backward`` (every 3³ conv's dL/dx and dL/dW on
 the card's kernels), optimizer update in place. The loss comes back as a
 0-dim device tensor, so a caller that does not read it adds no host sync.
 
-The per-step ``augment`` draw of the reference uses ``jax.random`` and
-cannot be reproduced bit for bit; ``augment=True`` raises until a later
-slice brings its own counter-based draw.
+With ``augment=True`` the cached step applies one of the 48 cube
+orientations per step. The code is the reference's draw,
+``jax.random.randint(fold_in(key(seed), step), (), 0, 48)``, reproduced
+on the host with integers (:func:`orientation_code`: threefry-2x32 and
+``randint``'s two-draw reduction, as JAX computes them with
+``jax_threefry_partitionable`` on, its default), so the same seed and
+step give the same orientation in both packages. torch's RNG is not used.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ __all__ = [
     "pack_fg_bits",
     "unpack_fg_bits",
     "orient_batch",
+    "orientation_code",
 ]
 
 
@@ -176,9 +181,50 @@ def orient_batch(batch, code):
     return batch
 
 
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on one pair of uint32 words, as
+    ``jax._src.prng`` applies it (key schedule with 0x1BD11BDA, an
+    injection after every 4 rounds)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def orientation_code(seed, step):
+    """The orientation code in [0, 48) of train step ``step``:
+    ``jax.random.randint(fold_in(key(seed), step), (), 0, 48)`` in plain
+    integers. The key of an int32 seed is ``(0, seed)``; ``fold_in`` hashes
+    the count pair ``(0, step)``; ``split`` hashes ``(0, 0)`` and
+    ``(0, 1)`` into two keys; each gives 32 random bits as the XOR of the
+    two words it hashes from ``(0, 0)``; ``randint`` then takes
+    ``(hi mod 48 · (2^32 mod 48) + lo mod 48) mod 48``."""
+    seed, step = int(seed), int(step)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"the seed must be an int32, got {seed}")
+    key = _threefry2x32(0, seed & _M32, 0, step & _M32)
+    bits = []
+    for i in (0, 1):
+        sub = _threefry2x32(*key, 0, i)
+        w0, w1 = _threefry2x32(*sub, 0, 0)
+        bits.append(w0 ^ w1)
+    span = 48
+    multiplier = ((1 << 16) % span) ** 2 % span
+    return ((bits[0] % span) * multiplier + bits[1] % span) % span
+
+
 def make_cached_train_step(fg_weight=20.0, eps=1e-3, transform=None,
                            preserve_foreground=False, fg_packed=False,
-                           augment=False, patch_shape=None):
+                           augment=False, seed=0, patch_shape=None):
     """The step over a device-resident cache:
     ``(state, raw_all, teacher_all, fg_all, idx) -> (state, loss)``.
 
@@ -189,25 +235,30 @@ def make_cached_train_step(fg_weight=20.0, eps=1e-3, transform=None,
     intensity transform run on the device. ``fg_all`` is None when the
     loss never reads fg (``fg_weight == 0`` and not
     ``preserve_foreground``), else the mask, bit-packed with
-    :func:`pack_fg_bits` when ``fg_packed``.
+    :func:`pack_fg_bits` when ``fg_packed``. ``augment=True`` orients each
+    gathered batch by ``orientation_code(seed, state.step)`` (the step
+    before the update): raw and teacher in one pass over their stack, fg
+    the same way. Cubic patches only.
     """
-    if augment:
-        raise NotImplementedError(
-            "augment=True (the per-step orientation draw) comes with a later "
-            "slice of the port: the reference draws it with jax.random"
-        )
     needs_fg = preserve_foreground or fg_weight != 0
 
     def step(state, raw_all, teacher_all, fg_all, idx):
         raw = raw_all.index_select(0, idx)
         teacher = teacher_all.index_select(0, idx)
-        fg, target = 0.0, teacher  # loss weight identically 1
         if needs_fg:
             if fg_packed:
                 shape = patch_shape or tuple(raw_all.shape[1:])
                 fg_b = unpack_fg_bits(fg_all.index_select(0, idx), shape)
             else:
                 fg_b = fg_all.index_select(0, idx).bool()
+        if augment:
+            code = orientation_code(seed, state.step)
+            both = orient_batch(torch.cat([raw, teacher]), code).contiguous()
+            raw, teacher = both.split(len(raw))
+            if needs_fg:
+                fg_b = orient_batch(fg_b, code).contiguous()
+        fg, target = 0.0, teacher  # loss weight identically 1
+        if needs_fg:
             fg = fg_b[..., None]
             if preserve_foreground:
                 target = torch.where(fg_b, raw, teacher)

@@ -11,10 +11,13 @@ Usage (on the card):
     python -m exaspim_tpu_torch.train.train_bm4dnet --train-cache /c/train \\
         --val-cache /c/val --out /runs/bm4dnet [--epochs 50] ...
 
-Flags of the reference that the port does not support yet
-(``--config-json``, ``--data-parallel``, ``--augment``,
-``--full-state-every``) raise. ``--exact-cratio-examples 0`` skips the
-exact host cratio where neither libblosc nor ``zstandard`` is installed.
+``--config-json`` takes a :class:`~exaspim_tpu_torch.config.TrainConfig`
+file that drives the run as in the JAX script: its fields replace the
+training flags, which are then ignored. The port's own flags
+(``--exact-cratio-examples``, ``--device``) still apply.
+``--data-parallel`` raises (multi-GPU training is not ported).
+``--exact-cratio-examples 0`` skips the exact host cratio where neither
+libblosc nor ``zstandard`` is installed.
 """
 
 from __future__ import annotations
@@ -45,16 +48,13 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
           val_every=1000, seed=42, width_multiplier=1.0, model_cfg=None,
           resume=None, bf16=True, checkpoint_weights=None,
           max_val_examples=None, data_parallel=False, device_cache="auto",
-          device_cache_budget=8 << 30, augment=False,
+          device_cache_budget=8 << 30, augment=False, full_state_every=1,
           exact_cratio_examples=16, log_every=50, device="cuda"):
     """Run cache-only training; returns the Trainer (its ``state`` holds
     the final train state)."""
     if data_parallel:
         raise NotImplementedError(
             "data-parallel training comes with the multi-GPU slice")
-    if augment:
-        raise NotImplementedError(
-            "augment=True comes with a later slice of the port")
     train_cache, val_cache = list(train_cache), list(val_cache)
     transform = build_transform(load_cache_transform(train_cache + val_cache))
     train_ds = CachedPatchDataset(train_cache)
@@ -78,7 +78,8 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
         checkpoint_weights=checkpoint_weights or CHECKPOINT_WEIGHTS,
         seed=seed, max_val_examples=max_val_examples,
         device_cache=device_cache, device_cache_budget=device_cache_budget,
-        exact_cratio_examples=exact_cratio_examples, log_every=log_every,
+        exact_cratio_examples=exact_cratio_examples, augment=augment,
+        full_state_every=full_state_every, log_every=log_every,
         device=device,
     )
     trainer.save_config({
@@ -94,7 +95,9 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--config-json")
+    p.add_argument("--config-json",
+                   help="TrainConfig JSON; when given it drives the whole "
+                        "run and the training flags are ignored")
     p.add_argument("--train-cache", nargs="+")
     p.add_argument("--val-cache", nargs="+")
     p.add_argument("--out")
@@ -114,22 +117,35 @@ def main(argv=None):
     p.add_argument("--device-cache", choices=("auto", "on", "off"),
                    default="auto")
     p.add_argument("--device-cache-budget-gb", type=float, default=8.0)
-    p.add_argument("--augment", action="store_true")
-    p.add_argument("--full-state-every", type=int)
+    p.add_argument("--augment", action="store_true",
+                   help="one of the 48 cube orientations per train step "
+                        "(device-cache mode, cubic patches)")
+    p.add_argument("--full-state-every", type=int, default=1,
+                   help="write the full-state resume checkpoint every Nth "
+                        "validation")
     p.add_argument("--exact-cratio-examples", type=int, default=16,
                    help="examples per validation whose exact chunked "
                         "cratio is measured on the host (0: none)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    unsupported = [flag for flag, on in (
-        ("--config-json", args.config_json),
-        ("--full-state-every", args.full_state_every is not None),
-    ) if on]
-    if unsupported:
-        raise NotImplementedError(
-            f"{', '.join(unsupported)}: not supported by the port yet")
+    port = dict(exact_cratio_examples=args.exact_cratio_examples,
+                device=args.device)
+    if args.config_json:
+        from exaspim_tpu_torch.config import TrainConfig
+
+        c = TrainConfig.from_json(args.config_json)
+        return train(
+            c.train_cache, c.val_cache, c.output_dir, epochs=c.epochs,
+            batch_size=c.batch_size, lr=c.lr, fg_weight=c.fg_weight,
+            preserve_foreground=c.preserve_foreground,
+            val_every=c.val_every, seed=c.seed,
+            width_multiplier=c.width_multiplier, resume=c.resume,
+            bf16=c.bf16, checkpoint_weights=c.checkpoint_weights,
+            data_parallel=c.data_parallel, **port,
+        )
     if not (args.train_cache and args.val_cache and args.out):
-        p.error("--train-cache/--val-cache/--out are required")
+        p.error("--train-cache/--val-cache/--out (or --config-json) are "
+                "required")
     return train(
         args.train_cache, args.val_cache, args.out, epochs=args.epochs,
         batch_size=args.batch_size, lr=args.lr, fg_weight=args.fg_weight,
@@ -142,9 +158,8 @@ def main(argv=None):
         device_cache={"auto": "auto", "on": True, "off": False}[
             args.device_cache],
         device_cache_budget=int(args.device_cache_budget_gb * (1 << 30)),
-        augment=args.augment,
-        exact_cratio_examples=args.exact_cratio_examples,
-        device=args.device,
+        augment=args.augment, full_state_every=args.full_state_every,
+        **port,
     )
 
 

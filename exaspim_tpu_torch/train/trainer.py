@@ -15,12 +15,18 @@ batches streamed through the loader. The loss is read to the host only
 when a step is logged (every ``log_every`` steps), so other steps add no
 host sync.
 
+Every ``full_state_every``-th validation also writes the full train
+state (``latest_state.ckpt``), from which ``run(resume_state=)`` continues
+a run: params, AdamW moments and the step, in the JAX package's format,
+so either package resumes the other's. ``augment=True`` orients each
+batch of the card-resident cache by the reference's per-step draw.
+
 Later slices of the port: rotating cache shards through device memory
-(a cache larger than ``device_cache_budget``), full-state resume
-checkpoints, the data-parallel (mesh) step, TensorBoard scalars and MIP
-images. The exact cratio needs libblosc or ``zstandard``; without either,
-pass ``exact_cratio_examples=0`` and ``val_cratio`` is 0.0, as the
-reference reports it when no example was measured.
+(a cache larger than ``device_cache_budget``), the data-parallel (mesh)
+step, TensorBoard scalars and MIP images. The exact cratio needs libblosc
+or ``zstandard``; without either, pass ``exact_cratio_examples=0`` and
+``val_cratio`` is 0.0, as the reference reports it when no example was
+measured.
 """
 
 from __future__ import annotations
@@ -51,7 +57,10 @@ from exaspim_tpu_torch.ops.metrics_device import evaluate_batch
 from exaspim_tpu_torch.train.checkpoint import (
     checkpoint_filename,
     load_checkpoint,
+    load_train_state,
+    read_train_state,
     save_checkpoint,
+    save_train_state,
 )
 from exaspim_tpu_torch.train.state import (
     create_train_state,
@@ -79,7 +88,8 @@ class Trainer:
                  loss_eps=1e-3, checkpoint_weights=None, clevel=6, seed=42,
                  warmup_steps=0, max_val_examples=None,
                  device_cache="auto", device_cache_budget=8 << 30,
-                 exact_cratio_examples=16, log_every=50, device="cuda"):
+                 exact_cratio_examples=16, augment=False,
+                 full_state_every=1, log_every=50, device="cuda"):
         self.model = model
         self.transform = transform
         self.lr = lr
@@ -106,6 +116,12 @@ class Trainer:
         #: into whole batches; True forces it; False streams batches.
         self.device_cache = device_cache
         self.device_cache_budget = int(device_cache_budget)
+        #: one of the 48 cube orientations per step, drawn from (seed,
+        #: step); card-resident cache and cubic patches only.
+        self.augment = bool(augment)
+        #: write ``latest_state.ckpt`` on every Nth validation.
+        self.full_state_every = max(1, int(full_state_every))
+        self._n_validations = 0
         self.log_every = int(log_every)
         self.device = torch.device(device)
 
@@ -123,18 +139,23 @@ class Trainer:
     def load_pretrained_weights(self, ckpt_path):
         """Stage params from a checkpoint (path or loaded dict); a
         model-config mismatch raises."""
-        from exaspim_tpu_torch.models import build_model
-
         ckpt = (ckpt_path if isinstance(ckpt_path, dict)
                 else load_checkpoint(ckpt_path))
-        cfg = build_model(ckpt["model_config"], device="cpu").config
-        if cfg != self.model.config:
+        if not self._same_model(ckpt["model_config"]):
             raise ValueError(
                 "checkpoint model_config does not match this model: "
                 f"{ckpt['model_config']} vs {self.model.config}"
             )
         self._pretrained_params = ckpt["params"]
         self._pretrained_transform_cfg = ckpt["transform"]
+
+    def _same_model(self, model_config):
+        """Whether a checkpoint's model config builds this model (a field
+        missing from an older file compares as its default)."""
+        from exaspim_tpu_torch.models import build_model
+
+        return build_model(model_config, device="cpu").config \
+            == self.model.config
 
     def check_transform_cfg(self):
         """Resumed training must keep the identical intensity mapping."""
@@ -265,8 +286,13 @@ class Trainer:
 
     # -------------------------------------------------------------- run
 
-    def run(self, train_ds, val_ds):
-        """Full training run; returns the final train state."""
+    def run(self, train_ds, val_ds, resume_state=None):
+        """Full training run; returns the final train state.
+
+        ``resume_state``: a full-state checkpoint (``latest_state.ckpt`` of
+        either package) to continue from. Params, optimizer moments and
+        the step restore; the run goes on from the epoch that step falls
+        in, as the reference does."""
         self.check_transform_cfg()
         train_loader = DataLoader(
             train_ds, self.batch_size,
@@ -276,6 +302,11 @@ class Trainer:
         val_loader = DataLoader(val_ds, self.batch_size,
                                 make_count_val_collate())
         use_dev_cache = self._resolve_device_cache(train_ds)
+        if self.augment and not use_dev_cache:
+            raise ValueError(
+                "augment=True requires device-cache mode (the orientation "
+                "draw runs inside the cached train step); this run resolved "
+                "to the streaming loader path")
         if use_dev_cache:
             steps_per_epoch = len(train_ds) // self.batch_size
         else:
@@ -290,11 +321,27 @@ class Trainer:
             seed=self.seed, warmup_steps=self.warmup_steps,
             params=self._pretrained_params,
         )
+        start_step = 0
+        if resume_state:
+            tree, meta = read_train_state(resume_state)
+            if meta["transform"] != self.transform.cfg:
+                raise ValueError(
+                    "resume transform cfg mismatch: "
+                    f"{meta['transform']} vs {self.transform.cfg}")
+            if not self._same_model(meta["model_config"]):
+                raise ValueError(
+                    "resume model_config mismatch: "
+                    f"{meta['model_config']} vs {self.model.config}")
+            start_step = load_train_state(state, tree).step
         if use_dev_cache:
+            if self.augment and len(set(patch)) != 1:
+                raise ValueError(
+                    f"augment=True requires cubic patches, got {patch}")
             train_step = make_cached_train_step(
                 self.fg_weight, eps=self.loss_eps, transform=self.transform,
                 preserve_foreground=self.preserve_foreground,
-                fg_packed=self._fg_needed(), patch_shape=patch,
+                fg_packed=self._fg_needed(), augment=self.augment,
+                seed=self.seed, patch_shape=patch,
             )
         else:
             train_step = make_train_step(
@@ -305,10 +352,12 @@ class Trainer:
             "total_steps": total_steps,
             "steps_per_epoch": steps_per_epoch,
             "device_cache": bool(use_dev_cache),
+            "augment": self.augment,
             "device": str(self.device),
         })
 
-        step = 0
+        step = start_step
+        start_epoch = start_step // max(steps_per_epoch, 1)
         t0 = time.time()
         timer = StepTimer(voxels_per_step=self.batch_size * int(np.prod(patch)))
 
@@ -330,7 +379,7 @@ class Trainer:
         if use_dev_cache:
             raw_dev, teacher_dev, fg_dev = self._upload_cache(train_ds)
             samples_per_epoch = steps_per_epoch * self.batch_size
-            for epoch in range(self.epochs):
+            for epoch in range(start_epoch, self.epochs):
                 # The DataLoader's permutation stream, sent once per epoch.
                 order = np.random.default_rng(
                     np.random.SeedSequence([self.seed, epoch])
@@ -343,7 +392,7 @@ class Trainer:
                         order[lo:lo + self.batch_size])
                     bookkeep(state, loss, epoch)
         else:
-            for epoch in range(self.epochs):
+            for epoch in range(start_epoch, self.epochs):
                 train_loader.set_epoch(epoch)
                 for x, y, fg in prefetch_to_device(train_loader,
                                                    device=self.device):
@@ -408,7 +457,8 @@ class Trainer:
         return result
 
     def validate_and_checkpoint(self, state, eval_step, val_loader, step):
-        """Validate, log, and write the scored checkpoint."""
+        """Validate, log, and write the scored checkpoint (and, every
+        ``full_state_every``-th time, ``latest_state.ckpt``)."""
         metrics = self.validate(state, eval_step, val_loader)
         self._log({"event": "val", "step": step, **metrics})
         path = os.path.join(
@@ -418,6 +468,11 @@ class Trainer:
             step=step, score=metrics["val_score"],
             extra={"metrics": metrics},
         )
+        self._n_validations += 1
+        if self._n_validations % self.full_state_every == 0:
+            save_train_state(
+                os.path.join(self.ckpt_dir, "latest_state.ckpt"), state,
+                self.model.config, self.transform.cfg)
         return metrics, path
 
     # ---------------------------------------------------------- logging

@@ -119,8 +119,11 @@ def test_unsupervised_evaluator_matches_jax(tmp_path, ckpt, jax_f32,
     runs ``matcher="dense"`` here (kernel against Pallas:
     ``tests/test_torch_port_bm4d.py``)."""
     import functools
+    import importlib
 
-    import exaspim_tpu_torch.ops.bm4d as tbm4d
+    # The module: ``exaspim_tpu_torch.ops.bm4d`` is the function, as in the
+    # JAX package, since ``ops`` re-exports it.
+    tbm4d = importlib.import_module("exaspim_tpu_torch.ops.bm4d")
 
     monkeypatch.setattr(tbm4d, "bm4d",
                         functools.partial(tbm4d.bm4d, matcher="dense"))

@@ -657,3 +657,128 @@ def test_conv_any_width_on_the_kernels(segs, cout):
     for got, want in grads:
         rel = (got.float() - want).norm() / want.norm()
         assert rel.item() <= 2.0 ** -8
+
+
+def _card_caches(root):
+    from exaspim_tpu_torch.data.synthetic import make_synthetic_cache
+
+    tcfg = {"kind": "asinh", "params": {"offset": 100.0, "scale": 60.0}}
+    return (make_synthetic_cache(str(root / "train"), 16, (32, 32, 32), tcfg,
+                                 seed=1),
+            make_synthetic_cache(str(root / "val"), 4, (32, 32, 32), tcfg,
+                                 seed=2))
+
+
+@pytest.mark.gpu
+def test_augmented_training_on_the_card(tmp_path):
+    """``train(augment=True)`` on the card: the codes applied are
+    ``orientation_code(seed, step)``, the losses finite, every step on
+    the conv and dL/dW kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw
+    from exaspim_tpu_torch.train import state as ts
+    from exaspim_tpu_torch.train.train_bm4dnet import train
+
+    train_dir, val_dir = _card_caches(tmp_path)
+    codes, orient = [], ts.orient_batch
+
+    def spy(batch, code):
+        codes.append(code)
+        return orient(batch, code)
+
+    before = nb_conv3d_dw.launches
+    ts.orient_batch = spy
+    try:
+        t = train([train_dir], [val_dir], str(tmp_path / "run"), epochs=1,
+                  batch_size=4, seed=7, width_multiplier=0.25, augment=True,
+                  exact_cratio_examples=0, log_every=1)
+    finally:
+        ts.orient_batch = orient
+    assert codes == [ts.orientation_code(7, i) for i in range(4)]
+    assert t.state.step == 4
+    assert nb_conv3d_dw.launches - before == 4 * 18
+    import glob
+    import json
+
+    (log,) = glob.glob(str(tmp_path / "run" / "session-*" / "log.jsonl"))
+    losses = [json.loads(line).get("loss") for line in open(log)]
+    losses = [v for v in losses if v is not None]
+    assert len(losses) == 4 and np.all(np.isfinite(losses))
+
+
+class _Preempted(Exception):
+    """Stands for the end of a preempted process."""
+
+
+@pytest.mark.gpu
+def test_resume_on_the_card(tmp_path, monkeypatch):
+    """A two-epoch run stopped after its first validation (which wrote
+    ``latest_state.ckpt``), resumed by a fresh Trainer for the second
+    epoch: the final params within 1e-4 of the same run uninterrupted
+    (chip_smoke.py's RESUME_ATOL; on the CPU the two are bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from exaspim_tpu_torch.data.cache import (
+        CachedPatchDataset,
+        CachedValidateDataset,
+    )
+    from exaspim_tpu_torch.models import UNet
+    from exaspim_tpu_torch.train.train_bm4dnet import train
+    from exaspim_tpu_torch.train.trainer import Trainer
+    from exaspim_tpu_torch.transforms import build_transform
+
+    train_dir, val_dir = _card_caches(tmp_path)
+    cfg = dict(epochs=2, batch_size=4, val_every=4, seed=3,
+               exact_cratio_examples=0)
+    straight = train([train_dir], [val_dir], str(tmp_path / "a"),
+                     width_multiplier=0.25, **cfg)
+    save = Trainer.validate_and_checkpoint
+
+    def preempt(self, *args):
+        save(self, *args)
+        raise _Preempted
+
+    with monkeypatch.context() as m:
+        m.setattr(Trainer, "validate_and_checkpoint", preempt)
+        with pytest.raises(_Preempted):
+            train([train_dir], [val_dir], str(tmp_path / "b"),
+                  width_multiplier=0.25, **cfg)
+    import glob
+
+    (latest,) = glob.glob(str(tmp_path / "b" / "session-*" / "checkpoints"
+                              / "latest_state.ckpt"))
+    tcfg = {"kind": "asinh", "params": {"offset": 100.0, "scale": 60.0}}
+    resumed = Trainer(str(tmp_path / "c"),
+                      UNet(width_multiplier=0.25, dtype=torch.bfloat16),
+                      build_transform(tcfg), **cfg)
+    state = resumed.run(CachedPatchDataset([train_dir]),
+                        CachedValidateDataset([val_dir]),
+                        resume_state=latest)
+    assert state.step == straight.state.step == 8
+    want, got = straight.state.params, state.params
+    gap = max((want[k] - got[k]).abs().max().item() for k in want)
+    assert gap <= 1e-4, gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dilate", [0, 2])
+def test_foreground_mask_on_the_card(dilate):
+    """``make_foreground_mask`` of a CUDA tensor (threshold and dilation on
+    the card) is the host's mask bit for bit, an odd and an even count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from exaspim_tpu_torch.data.synthetic import (
+        neurite_phantom,
+        noisy_observation,
+    )
+    from exaspim_tpu_torch.ops.metrics import make_foreground_mask
+
+    clean, _ = neurite_phantom((33, 41, 48), n_tubes=4, seed=5)
+    for vol in (noisy_observation(clean, seed=6), noisy_observation(
+            clean, seed=7)[:, :, :47]):
+        want = make_foreground_mask(vol, dilate=dilate)
+        got = make_foreground_mask(
+            torch.from_numpy(vol.astype(np.int32)).cuda(), dilate=dilate)
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

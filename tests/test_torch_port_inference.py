@@ -130,7 +130,7 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    banned = ("jax", "flax", "exaspim_tpu")
+    banned = ("jax", "flax", "optax", "exaspim_tpu")
     files = list(_port_files())
     assert len(files) > 10
     for path in files:

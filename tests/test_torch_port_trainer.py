@@ -94,7 +94,8 @@ def test_trainer_matches_jax(caches):
             assert abs(a[k] - b[k]) <= tol, (k, a[k], b[k])
     pat = re.compile(r"BM4DNet-\d{8}-(\d+)-(-?[\d.]+)\.ckpt$")
     jc = [pat.match(n).groups() for n in _ckpts(jt) if pat.match(n)]
-    tc = [pat.match(n).groups() for n in _ckpts(tt)]
+    tc = [pat.match(n).groups() for n in _ckpts(tt) if pat.match(n)]
+    assert "latest_state.ckpt" in _ckpts(tt)  # full_state_every=1
     assert [s for s, _ in tc] == [s for s, _ in jc] == ["2", "4"]
     for (_, a), (_, b) in zip(tc, jc):
         assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b))
