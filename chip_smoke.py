@@ -128,7 +128,29 @@ line:
     ``Trainer.run(resume_state=)`` for the second epoch: final params within
     ``RESUME_ATOL`` (the max |Δ| and whether bit-equal printed); one
     ``augment=True`` run of an epoch whose applied orientation codes
-    equal ``orientation_code(seed, step)`` and whose losses are finite.
+    equal ``orientation_code(seed, step)`` and whose losses are finite;
+20. reference checkpoints: four files in the upstream reference's torch
+    format written with ``torch.save`` (the shipped weights with zero conv
+    biases as a dict and as a legacy bare state dict, the same with
+    seeded conv biases, and a width-1.0 transposed-conv UNet with seeded
+    weights and biases) go through ``import_torch_checkpoint``; the dict
+    and legacy files import to equal parameters; every conv shape of the
+    four models at the 256³ block's tile plan is recorded and each shape
+    phase 3 did not hold is held as phase 3 holds its own; the biased and
+    the transposed-conv model ``predict`` the block (54 conv and 54
+    reduce launches each, the median of three calls, peak memory) and a
+    48³ crop against the plain path on the card and the f32 CPU path
+    (phase 10b's limits); the shipped net under the reference's
+    ``align_corners=True`` grid is scored beside phase 5, not gated;
+21. N2V: one ``make_n2v_train_step`` step (batch 4 of 64³, width-0.5
+    N2V2UNet) on the card against the same step on the CPU in f32 from
+    the same parameters and key, plain and σ-aware: blind spots bit-equal,
+    loss, whole gradient and updated parameters within the stated limits;
+    every conv and dL/dW shape of one step at the script's batch (16 of
+    64³) held and timed as phase 7 holds its own; then ``train_n2v.main`` for 300 steps on 128 patches (its other flags
+    at the JAX script's defaults), counted: 35 conv and 18 dL/dW launches
+    a step, 72 conv launches of the held-out predict, one histogram
+    launch; losses finite and falling, scores finite, ``step_s``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -251,6 +273,27 @@ EVAL_VOXELS = ((0, 0, 0), (64, 96, 128), (192, 64, 32), (128, 192, 192))
 # stay orders below it.
 RESUME_ATOL = 1e-4
 DEMO_BATCH = 16  # demo_end_to_end's --batch-size
+# Reference checkpoints (phase 20): the spread of the seeded conv biases.
+REF_BIAS_SIGMA = 0.05
+# N2V (phase 21): the short run of train_n2v (its other flags at the
+# defaults), and the card-vs-CPU step at a batch the CPU takes in seconds:
+# bf16 on the card against f32 on the CPU, from one random init. Adam's
+# first update is about lr · sign(g) for every element, so the updated
+# parameters differ by at most two steps where a gradient's sign flips
+# between the two (2 · lr), and the share of elements apart counts those
+# flips. The limits on the loss (per loss), the whole gradient's relative
+# L2 and that share were set at about twice the readings of the first run
+# on an H100 (PERF.md): loss 2.0e-3 plain, 6.3e-2 sigma-aware (a random
+# head's prediction through the exponential asinh inverse multiplies bf16's
+# rounding), gradients 0.106 / 0.082 (phase 9b's f32 limit, 0.2, kept),
+# share 0.075 / 0.024. The per-parameter gradients are printed, not held:
+# the entry conv's (27 values, ahead of a GroupNorm that cancels most of
+# them) reads 0.34.
+N2V_STEPS, N2V_PATCHES, N2V_CHECK_BATCH = 300, 128, 4
+N2V_LOSS_RTOL = {None: 0.005, 1.0: 0.15}
+N2V_PARAM_ATOL = 2e-3 * 1.001
+N2V_GRAD_REL_L2 = GRAD_REL_L2_F32
+N2V_FLIP_SHARE = 0.15
 
 _T0 = time.time()
 
@@ -2153,6 +2196,436 @@ def resume_path(train_dir, val_dir):
             "augment_losses": losses}
 
 
+def reference_state_dict(sd, trilinear=True):
+    """The port's state dict (f32 CPU tensors) in the upstream reference's
+    torch key layout (``inc``, ``down{i}.maxpool_conv.1``, ``up{i}.conv``,
+    ``up{i}.up``, ``outc.conv``): what ``import_torch_checkpoint`` reads.
+    Convs without a bias get zero biases, as the reference's all have."""
+    import torch
+
+    out = {}
+
+    def double_conv(prefix, name):
+        for i, (ci, gi) in enumerate(((0, 1), (3, 4))):
+            k = sd[f"{name}.Conv_{i}.kernel"]
+            cin, cout = k.shape[1:]
+            out[f"{prefix}.{ci}.weight"] = k.reshape(
+                3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+            out[f"{prefix}.{ci}.bias"] = sd.get(f"{name}.Conv_{i}.bias",
+                                                torch.zeros(cout))
+            out[f"{prefix}.{gi}.weight"] = sd[f"{name}.GroupNorm_{i}.scale"]
+            out[f"{prefix}.{gi}.bias"] = sd[f"{name}.GroupNorm_{i}.bias"]
+
+    double_conv("inc.double_conv", "DoubleConv_0")
+    for i in range(1, 5):
+        double_conv(f"down{i}.maxpool_conv.1.double_conv", f"DoubleConv_{i}")
+        double_conv(f"up{i}.conv.double_conv", f"Up_{i - 1}.DoubleConv_0")
+        if not trilinear:
+            ct = f"Up_{i - 1}.ConvTranspose_0"
+            out[f"up{i}.up.weight"] = sd[f"{ct}.kernel"].flip(
+                0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+            out[f"up{i}.up.bias"] = sd[f"{ct}.bias"]
+    head = sd["Conv_0.kernel"]
+    out["outc.conv.weight"] = head.t().reshape(1, -1, 1, 1, 1).contiguous()
+    out["outc.conv.bias"] = sd["Conv_0.bias"]
+    return {k: v.detach().float().cpu().clone() for k, v in out.items()}
+
+
+def reference_files(transform_cfg):
+    """Phase 20's four reference-format checkpoints under ``WORK``:
+    ``{name: (path, note)}``."""
+    import torch
+
+    from exaspim_tpu_torch.models import UNet
+    from exaspim_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        params_from_flax,
+    )
+
+    out = os.path.join(WORK, "reference")
+    os.makedirs(out, exist_ok=True)
+    shipped = reference_state_dict(params_from_flax(
+        load_checkpoint(CKPT)["params"]))
+    cfg = {"model": "UNet", "width_multiplier": 1.0, "trilinear": True}
+    gen = torch.Generator().manual_seed(0)
+    biased = {k: v + REF_BIAS_SIGMA * torch.randn(v.shape, generator=gen)
+              if k.endswith(("0.bias", "3.bias")) and "double_conv" in k
+              else v for k, v in shipped.items()}
+    # (d): seeded weights, a head drawn from a normal (the reference's
+    # torch head is no identity), conv biases of the same spread, and a
+    # linear transform (a random model's logits through the asinh
+    # inverse would reach ~1e14 counts).
+    tconv = UNet(trilinear=False, conv_bias=True,
+                 head_init="normal").init_weights(1)
+    gen = torch.Generator().manual_seed(1)
+    tsd = {k: v + REF_BIAS_SIGMA * torch.randn(v.shape, generator=gen)
+           if k.endswith("bias") else v
+           for k, v in tconv.state_dict().items()}
+    linear = {"kind": "linear", "params": {"mn": 0.0, "mx": 8000.0,
+                                           "clip": 8.0}}
+    files = {
+        "a": ({"model": shipped, "transform": transform_cfg,
+               "model_config": cfg}, "shipped weights, zero conv biases, "
+              "dict format"),
+        "b": (shipped, "the same weights, a legacy bare state dict"),
+        "c": ({"model": biased, "transform": transform_cfg,
+               "model_config": cfg}, f"conv biases ~ N(0, "
+              f"{REF_BIAS_SIGMA}) from seed 0"),
+        "d": ({"model": reference_state_dict(tsd, trilinear=False),
+               "transform": linear}, "width-1.0 trilinear=False UNet, "
+              "seeded weights and biases, config inferred"),
+    }
+    paths = {}
+    for name, (obj, note) in files.items():
+        paths[name] = (os.path.join(out, f"{name}.pth"), note)
+        torch.save(obj, paths[name][0])
+    return paths
+
+
+def reference_path(img, clean, checked, patch, batch, quality,
+                   transform_cfg):
+    """Phase 20 (see the module docstring). ``checked``: the conv keys
+    ``(batch, n, segs, cout)`` phase 3 held; ``quality``: phase 5's
+    record. Returns the record."""
+    import torch
+
+    from exaspim_tpu_torch.ckpt_quality import proxy_ratios
+    from exaspim_tpu_torch.ckpt_quality import score as quality_score
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_plain
+    from exaspim_tpu_torch.train.checkpoint import import_torch_checkpoint
+
+    paths = reference_files(transform_cfg)
+    rec = {"models": {}, "new_shapes": [], "conv_checks": []}
+    models = {}
+    for name, (path, note) in paths.items():
+        model, transform = import_torch_checkpoint(path, device="cuda")
+        models[name] = (model, transform)
+        print(f"({name}) {note}: imported as {model.config}; transform "
+              f"{transform.cfg}", flush=True)
+        rec["models"][name] = {"config": model.config,
+                               "transform": transform.cfg}
+    sa, sb = (models[k][0].state_dict() for k in "ab")
+    if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                         for k in sa):
+        fail("the dict and the legacy file imported to other parameters")
+    print("(a) and (b): equal parameters", flush=True)
+
+    # Every conv shape at the block's tile plan; the shapes phase 3 did
+    # not hold are held here.
+    x = torch.zeros((batch, patch, patch, patch, 1), device="cuda")
+    seen = Counter()
+    for name, (model, _) in models.items():
+        with torch.no_grad():
+            shapes = launch_shapes(lambda: model(x))
+        rec["models"][name]["conv_shapes"] = sorted(
+            [list(k[1:3]) + [list(k[3]), k[4]] for k in shapes])
+        seen.update({k[1:]: v for k, v in shapes.items()})
+    new = sorted(k for k in seen if k not in checked)
+    print(f"{len(seen)} conv shapes at B={batch}, {patch}^3 patches; new "
+          f"to phase 3: {[shape_name(*k[1:]) for k in new]}", flush=True)
+    with torch.no_grad():
+        rec["conv_checks"] = [check_kernel(*k, seed=300 + i)
+                              for i, k in enumerate(new)]
+    rec["new_shapes"] = [list(k) for k in new]
+    rec["conv_counts"] = [seen[k] for k in new]
+
+    n_batches = -(-27 // batch)
+    crop = img[:48, :48, :48]
+    for name in "cd":
+        model, transform = models[name]
+
+        def run():
+            with torch.no_grad():
+                return predict(img, model, transform, patch_size="auto",
+                               overlap=OVERLAP, trim=TRIM)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nb_conv3d.launches = nb_conv3d.reduce_launches = 0
+        out = run()
+        launches = (nb_conv3d.launches, nb_conv3d.reduce_launches)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = 18 * n_batches
+        print(f"({name}) predict 256^3: conv launches {launches[0]}, reduce "
+              f"{launches[1]} (expected {want} each); seconds {times} "
+              f"(median {np.median(times):.4f}); peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        if launches != (want, want) or out.shape != img.shape \
+                or out.dtype != np.uint16:
+            fail(f"({name}) predict: launches {launches}, output "
+                 f"{out.shape} {out.dtype}")
+        # Phase 10b's check on a 48^3 crop: the card's kernel path against
+        # the plain path on the card (bf16) and the f32 CPU path.
+        kw = dict(patch_size=32, overlap=OVERLAP, trim=TRIM, batch_size=8,
+                  return_float=True)
+        with torch.no_grad():
+            got = predict(crop, model, transform, **kw)
+            with patched(_conv=lambda xs, k, with_stats: nb_conv3d_plain(
+                    xs, k, with_stats)):
+                plain = predict(crop, model, transform, **kw)
+            cpu, _ = import_torch_checkpoint(paths[name][0], device="cpu")
+            ref = predict(crop, cpu, transform, device="cpu", **kw)
+        change = np.linalg.norm(ref - crop)
+        rel_b = float(np.linalg.norm(got - plain)
+                      / max(np.linalg.norm(plain - crop), 1e-30))
+        rel = float(np.linalg.norm(got - ref) / max(change, 1e-30))
+        print(f"({name}) 48^3 crop: rel L2 of the change vs the plain path "
+              f"on the card {rel_b:.3e} (limit {WIDTH_PREDICT_REL_BF16}), "
+              f"vs CPU f32 {rel:.3e} (limit {WIDTH_PREDICT_REL_F32}); "
+              f"|change| {change:.1f}", flush=True)
+        if not np.isfinite(got).all() or rel_b > WIDTH_PREDICT_REL_BF16 \
+                or rel > WIDTH_PREDICT_REL_F32:
+            fail(f"({name}) crop strays: {rel_b}, {rel}")
+        rec["models"][name].update({
+            "launches": launches[0], "reduce_launches": launches[1],
+            "block_s": times, "seconds_per_block": float(np.median(times)),
+            "peak_mem_gb": peak, "crop_rel_l2_vs_plain_bf16": rel_b,
+            "crop_rel_l2_vs_cpu_f32": rel})
+        del cpu
+
+    # (a): the shipped net under the reference's align_corners=True grid,
+    # scored beside phase 5 (information, not gated).
+    model, transform = models["a"]
+    with torch.no_grad():
+        out = predict(img, model, transform, patch_size="auto",
+                      overlap=OVERLAP, trim=TRIM)
+    s = quality_score(out, clean, None, device="cuda")
+    p_noisy, p_out = proxy_ratios([img, out], "cuda")
+    a = {"psnr_denoised_db": s["psnr_db"], "ssim_denoised": s["ssim"],
+         "proxy_gain": p_out / p_noisy}
+    rec["models"]["a"]["quality"] = a
+    print(f"(a) align_corners=True: PSNR {a['psnr_denoised_db']:.4f} dB "
+          f"(phase 5: {quality['psnr_denoised_db']:.4f}), SSIM "
+          f"{a['ssim_denoised']:.6f} ({quality['ssim_denoised']:.6f}), "
+          f"proxy gain {a['proxy_gain']:.4f} ({quality['proxy_gain']:.4f}); "
+          "not gated", flush=True)
+    return rec
+
+
+def n2v_step_check():
+    """Phase 21 (a): one ``make_n2v_train_step`` step on the card against
+    the same step on the CPU (f32) from the same parameters, batch and
+    key, plain and σ-aware. Returns the record."""
+    import torch
+
+    from exaspim_tpu_torch.data.loader import to_tensor
+    from exaspim_tpu_torch.data.synthetic import (
+        neurite_phantom,
+        noisy_observation,
+    )
+    from exaspim_tpu_torch.models import N2V2UNet
+    from exaspim_tpu_torch.train import prng
+    from exaspim_tpu_torch.train.n2v import (
+        make_blind_spots,
+        make_n2v_train_step,
+    )
+    from exaspim_tpu_torch.train.checkpoint import params_to_flax
+    from exaspim_tpu_torch.train.state import create_train_state
+    from exaspim_tpu_torch.train.train_n2v import TRANSFORM
+    from exaspim_tpu_torch.transforms import build_transform
+
+    batch = np.stack([noisy_observation(neurite_phantom(
+        (PATCH,) * 3, n_tubes=6, seed=i)[0], seed=7 * i)
+        for i in range(N2V_CHECK_BATCH)])[..., None]
+    key = prng.fold_in(prng.key(0), 3)
+    shape = (N2V_CHECK_BATCH,) + (PATCH,) * 3
+    m_card, s_card = make_blind_spots(key, shape, device="cuda")
+    m_cpu, s_cpu = make_blind_spots(key, shape, device="cpu")
+    same = torch.equal(m_card.cpu(), m_cpu) and torch.equal(s_card, s_cpu)
+    print(f"blind spots at {shape}: {int(m_cpu.sum())} masked, shifts "
+          f"{s_cpu.tolist()}; card and CPU bit-equal: {same}", flush=True)
+    if not same:
+        fail("the card's blind-spot draw differs from the CPU's")
+    kw = dict(width_multiplier=0.5, head_init="normal", residual=False)
+    init = params_to_flax(N2V2UNet(**kw).init_weights(0).state_dict())
+    rec = {"masked": int(m_cpu.sum())}
+    for sigma_gain in (None, 1.0):
+        states, grads, losses = {}, {}, {}
+        for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            model = N2V2UNet(dtype=dtype, **kw).to(dev)
+            state = create_train_state(model, lr=1e-3, total_steps=10,
+                                       params=init)
+            step = make_n2v_train_step(build_transform(TRANSFORM),
+                                       sigma_gain=sigma_gain)
+            apply = state.apply_gradients
+
+            def snapshot(apply=apply, dev=dev, model=model):
+                grads[dev] = {n: p.grad.detach().float().cpu().clone()
+                              for n, p in model.named_parameters()}
+                return apply()
+
+            state.apply_gradients = snapshot
+            _, loss = step(state, to_tensor(batch, dev), key)
+            losses[dev] = float(loss)
+            states[dev] = {n: p.detach().float().cpu()
+                           for n, p in model.named_parameters()}
+        loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        grad_rel = {n: float((grads["cuda"][n] - grads["cpu"][n]).norm()
+                             / grads["cpu"][n].norm().clamp(min=1e-30))
+                    for n in grads["cpu"]}
+        worst_n = max(grad_rel, key=grad_rel.get)
+        flat = {d: torch.cat([g.reshape(-1) for g in grads[d].values()])
+                for d in grads}
+        whole = float((flat["cuda"] - flat["cpu"]).norm()
+                      / flat["cpu"].norm())
+        diff = torch.cat([(states["cuda"][n] - states["cpu"][n]).reshape(-1)
+                          for n in states["cpu"]]).abs()
+        moved, flipped = float(diff.max()), float((diff > 1e-6).float().mean())
+        label = "plain" if sigma_gain is None else f"sigma_gain={sigma_gain}"
+        print(f"N2V step ({label}), batch {N2V_CHECK_BATCH} of {PATCH}^3, "
+              f"width 0.5: loss card {losses['cuda']:.6f} CPU "
+              f"{losses['cpu']:.6f} (rel {loss_rel:.2e} <= "
+              f"{N2V_LOSS_RTOL[sigma_gain]}); gradients: whole rel L2 {whole:.3e} (<= "
+              f"{N2V_GRAD_REL_L2}), per parameter median "
+              f"{float(np.median(list(grad_rel.values()))):.3e}, worst "
+              f"{grad_rel[worst_n]:.3e} ({worst_n}); updated params max "
+              f"|d| {moved:.3e} (<= {N2V_PARAM_ATOL}), share apart by more "
+              f"than 1e-6 {flipped:.4f} (<= {N2V_FLIP_SHARE})", flush=True)
+        if not np.isfinite(losses["cuda"]) \
+                or loss_rel > N2V_LOSS_RTOL[sigma_gain] \
+                or whole > N2V_GRAD_REL_L2 or moved > N2V_PARAM_ATOL \
+                or flipped > N2V_FLIP_SHARE:
+            fail(f"N2V step ({label}) on the card strays from the CPU's")
+        rec[label] = {"loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+                      "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                      "grad_rel_l2_whole": whole, "param_max_abs": moved,
+                      "param_share_apart": flipped}
+    return rec
+
+
+def n2v_step_kernels():
+    """Phase 21 (b): record the launch shapes of one N2V step at the
+    script's defaults (batch 16 of 64³, width 0.5), then hold and time each
+    as phase 7 does. Returns the conv and dL/dW records with their launches
+    per step."""
+    import torch
+
+    from exaspim_tpu_torch.models import N2V2UNet
+    from exaspim_tpu_torch.train import prng
+    from exaspim_tpu_torch.train.n2v import make_n2v_train_step
+    from exaspim_tpu_torch.train.state import create_train_state
+    from exaspim_tpu_torch.train.train_n2v import TRANSFORM
+    from exaspim_tpu_torch.transforms import build_transform
+
+    state = create_train_state(N2V2UNet(
+        width_multiplier=0.5, head_init="normal", residual=False,
+        dtype=torch.bfloat16).cuda(), lr=1e-3, total_steps=10)
+    step = make_n2v_train_step(build_transform(TRANSFORM))
+    x = torch.full((16,) + (PATCH,) * 3 + (1,), 300, dtype=torch.int16,
+                   device="cuda")
+    shapes = launch_shapes(lambda: (step(state, x, prng.key(0)),
+                                    torch.cuda.synchronize()))
+    del state, x
+    kinds = Counter()
+    for (kind, *_), c in shapes.items():
+        kinds[kind] += c
+    if (kinds["fwd"], kinds["dx"], kinds["dw"]) != (18, 17, 18):
+        fail(f"one N2V step launched {dict(kinds)}, expected fwd 18, dx 17, "
+             "dw 18")
+    conv, dw = {"recs": [], "counts": []}, {"recs": [], "counts": []}
+    with torch.no_grad():
+        for i, ((kind, b, n, segs, cout), c) in enumerate(
+                sorted(shapes.items())):
+            if kind == "dw":
+                dw["recs"].append(check_dw(b, n, segs, cout, seed=400 + i))
+                dw["counts"].append(c)
+            else:
+                conv["recs"].append(check_kernel(
+                    b, n, segs, cout, seed=400 + i, stats=kind == "fwd"))
+                conv["counts"].append(c)
+            torch.cuda.empty_cache()
+    for name, d in (("nb_conv3d", conv), ("nb_conv3d_dw", dw)):
+        t = per_step(d["recs"], d["counts"])
+        print(f"{name} per N2V step ({sum(d['counts'])} launches): kernel "
+              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']})", flush=True)
+    return conv, dw
+
+
+def n2v_path():
+    """Phase 21 (see the module docstring). Returns the record."""
+    import torch
+
+    from exaspim_tpu_torch.compression.proxy import chunk_byte_histograms
+    from exaspim_tpu_torch.ops import nb_conv as nc
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.train import n2v, train_n2v
+
+    rec = {"step_check": n2v_step_check()}
+    rec["conv"], rec["dw"] = n2v_step_kernels()
+    out = os.path.join(WORK, "n2v")
+    shutil.rmtree(out, ignore_errors=True)
+    losses = []
+    make = n2v.make_n2v_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(state, x, key):
+            state, loss = step(state, x, key)
+            losses.append(loss)  # read after the run: no sync per step
+            return state, loss
+
+        return run
+
+    counters = (nb_conv3d, nb_conv3d_dw, chunk_byte_histograms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    nb_conv3d.reduce_launches = 0
+    t0 = time.perf_counter()
+    with swapped(n2v, make_n2v_train_step=recording):
+        shapes, conv = Counter(), nc._conv
+
+        def spy(xs, k, with_stats):
+            shapes["fwd" if with_stats else "dx"] += 1
+            return conv(xs, k, with_stats)
+
+        with patched(_conv=spy):
+            summary = train_n2v.main(["--out", out, "--steps",
+                                      str(N2V_STEPS), "--n-patches",
+                                      str(N2V_PATCHES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    launches["nb_conv3d_reduce"] = nb_conv3d.reduce_launches
+    launches.update({f"nb_conv3d_{k}": v for k, v in shapes.items()})
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_n2v in {wall:.1f} s; step_s {summary['step_s']} (the "
+          f"window from step 200 to {N2V_STEPS - 1}); peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(json.dumps({k: v for k, v in summary.items() if k != "train_log"}),
+          flush=True)
+    print(f"launches {launches}; losses: first {losses[:3]}, mean of the "
+          f"first 20 {np.mean(losses[:20]):.5f}, of the last 50 "
+          f"{np.mean(losses[-50:]):.5f}", flush=True)
+    want = {"nb_conv3d_fwd": 18 * N2V_STEPS + 18 * 4,
+            "nb_conv3d_dx": 17 * N2V_STEPS,
+            "nb_conv3d_dw": 18 * N2V_STEPS, "chunk_byte_histograms": 1}
+    scores = [summary[k] for k in ("psnr_noisy_db", "psnr_denoised_db",
+                                   "ssim_noisy", "ssim_denoised",
+                                   "cratio_proxy_gain")]
+    if not np.all(np.isfinite(losses)) \
+            or not np.mean(losses[-50:]) < np.mean(losses[:20]):
+        fail(f"N2V losses do not fall: {losses[:20]} ... {losses[-50:]}")
+    if not np.all(np.isfinite(scores)):
+        fail(f"N2V scores not finite: {scores}")
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"N2V launches {launches}, expected {want}")
+    rec.update({"wall_s": wall, "summary": summary, "launches": launches,
+                "peak_mem_gb": peak, "losses": losses})
+    return rec
+
+
 def print_ptxas(build, name):
     for line in build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
@@ -2526,6 +2999,16 @@ def main():
     record["resume"] = resume_path(demo_train, demo_val)
     shutil.rmtree(WORK, ignore_errors=True)
 
+    phase("reference checkpoints: import_torch_checkpoint -> predict")
+    record["reference"] = reference_path(
+        img, clean, set(path_shapes), patch, batch, record["quality"],
+        transform_cfg)
+    torch.cuda.empty_cache()
+
+    phase(f"N2V: one step card vs CPU, then train_n2v for {N2V_STEPS} steps")
+    record["n2v"] = n2v_path()
+    shutil.rmtree(WORK, ignore_errors=True)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)
@@ -2645,13 +3128,32 @@ def main():
     }]
     # The demo's run (phase 18), counted apart: rows 1-3 and 6 in its
     # training, validation and held-out predict, rows 4-5 in its teachers.
+    # Phase 20: the conv launches of the counted 256^3 predicts of the
+    # imported biased (c) and transposed-conv (d) models. Phase 21: rows
+    # 1-3 and 6 in the counted train_n2v run (its steps and the held-out
+    # predict and summary).
     demo = record["demo"]["launches"]
+    n2v = record["n2v"]["launches"]
+    imported = sum(record["reference"]["models"][m]["launches"]
+                   for m in "cd")
     for k in kernels:
         key = {"nb_conv3d": "nb_conv3d", "nb_conv3d_dw": "nb_conv3d_dw",
                "chunk_byte_histograms": "chunk_byte_histograms",
                "bm4d_match_topk": "match_topk"}.get(k["name"])
         if key is not None:
             k["demo_launches"] = demo[key]
+        if key in n2v:
+            k["n2v_launches"] = n2v[key]
+        if k["name"] in ("nb_conv3d", "nb_conv3d_dw"):
+            d = record["n2v"]["conv" if k["name"] == "nb_conv3d" else "dw"]
+            k["n2v_step"] = per_step(d["recs"], d["counts"])
+        if k["name"] == "nb_conv3d (inference path)":
+            k["reference_launches"] = imported
+            ref = record["reference"]
+            if ref["conv_checks"]:
+                # The new shapes of (d) at the block's batch, per batch.
+                k["reference_new_shapes"] = per_step(ref["conv_checks"],
+                                                      ref["conv_counts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

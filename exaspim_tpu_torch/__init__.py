@@ -1,7 +1,9 @@
 """exaspim_tpu_torch: the PyTorch / CUDA (Hopper) port of exaspim_tpu.
 
-BM4D teacher generation, BM4DNet training and tiled denoising of uint16
-light-sheet volumes, scored by their blosc-zstd compression ratio. Entry
+BM4D teacher generation, BM4DNet training (against BM4D teachers, or
+self-supervised with Noise2Void), tiled denoising of uint16 light-sheet
+volumes, scored by their blosc-zstd compression ratio, and the import of
+the upstream reference's torch checkpoints. Entry
 points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on the card the 3³ convs, the BM4D block matching and
 the byte histogram run the hand-written kernels in ``csrc/``. The whole
@@ -24,6 +26,7 @@ _LAZY = {
     "build_transform": "exaspim_tpu_torch.transforms",
     "bm4d": "exaspim_tpu_torch.ops.bm4d",
     "UNet": "exaspim_tpu_torch.models",
+    "N2V2UNet": "exaspim_tpu_torch.models",
     "compute_cratio": "exaspim_tpu_torch.compression",
     "ssim3d": "exaspim_tpu_torch.ops.ssim",
 }

@@ -1,16 +1,22 @@
-"""Residual 3D U-Net denoiser ("BM4DNet") in PyTorch.
+"""3D U-Net denoisers ("BM4DNet") in PyTorch.
 
-Counterpart of ``exaspim_tpu/models/unet3d.py`` (``UNet:592``): a
-4-down/4-up residual U-Net with GroupNorm(gcd(8, C)) + LeakyReLU(0.01)
-double-conv blocks, trilinear ×2 upsampling, a 1×1×1 head with bias and
-``output = input + logits``.
+Counterpart of ``exaspim_tpu/models/unet3d.py`` (``UNet:592``,
+``N2V2UNet:721``): a 4-down/4-up U-Net with GroupNorm(gcd(8, C)) +
+LeakyReLU(0.01) double-conv blocks, trilinear or transposed-conv ×2
+upsampling, a 1×1×1 head with bias and ``output = input + logits`` (or the
+logits alone, ``residual=False``); and the Noise2Void2 variant, whose
+encoder pools through MaxBlurPool and whose last ``Up`` has no skip.
+Models imported from the reference's torch checkpoints carry a bias on
+every 3³ conv (``conv_bias=True``).
 
 Activations are channels-last ``(B, D, H, W, C)``, as in the reference.
 Every 3³ conv goes through :func:`exaspim_tpu_torch.ops.nb_conv.nb_conv3d_stats`
 (the Hopper kernel on the card): the conv emits Σy/Σy² of its rounded
-output and the following GroupNorm skips its own reduction. Submodule and
-parameter names mirror the Flax tree (``DoubleConv_0.Conv_0.kernel``,
-``Up_1.DoubleConv_0.GroupNorm_1.scale``, head ``Conv_0``), so
+output and the following GroupNorm skips its own reduction (a conv bias
+is added after the kernel and shifts those sums algebraically). Submodule
+and parameter names mirror the Flax tree (``DoubleConv_0.Conv_0.kernel``,
+``Up_1.DoubleConv_0.GroupNorm_1.scale``, ``Up_0.ConvTranspose_0.kernel``,
+head ``Conv_0``), so
 :func:`exaspim_tpu_torch.train.checkpoint.params_from_flax` is a rename.
 
 Parameters are f32 masters, trainable, as in the reference
@@ -33,10 +39,14 @@ from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_stats
 
 __all__ = [
     "UNet",
+    "N2V2UNet",
     "build_model",
     "MODEL_REGISTRY",
     "group_norm",
     "max_pool3d",
+    "blur_pool3d",
+    "max_blur_pool3d",
+    "conv_transpose_2x",
     "resize_trilinear",
     "linear_resize_matrix",
     "lecun_normal_",
@@ -87,14 +97,75 @@ def group_norm(x, scale, bias, num_groups, stats=None, eps=1e-5):
     return y.to(x.dtype)
 
 
-def max_pool3d(x):
-    """2³ stride-2 VALID max pool over NDHWC; odd trailing slabs drop.
+def max_pool3d(x, window=2, stride=None):
+    """``window``³ VALID max pool over NDHWC at ``stride`` (default the
+    window); odd trailing slabs drop.
 
     ``F.max_pool3d`` on the channels-last view: its gradient goes to one
     element per window, as XLA's ``reduce_window`` max does (``amax``
     would split it among ties, which bf16 makes common)."""
-    y = nn.functional.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2)
+    y = nn.functional.max_pool3d(x.permute(0, 4, 1, 2, 3), window,
+                                 stride or window)
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _binomial_kernel(n=3):
+    """1-D binomial (Pascal-row) taps, normalised: ``[1, 2, 1] / 4``."""
+    row = [math.comb(n - 1, k) for k in range(n)]
+    return [r / sum(row) for r in row]
+
+
+def blur_pool3d(x, stride=2):
+    """Separable binomial 3³ blur at ``stride`` over NDHWC (anti-aliasing):
+    replicate-pad once, then one 3-tap pass per spatial axis, each summed
+    in f32 and rounded to ``x.dtype``, as the reference's three depthwise
+    convs are (``unet3d.py:388``)."""
+    taps = _binomial_kernel(3)
+    x = nn.functional.pad(x.permute(0, 4, 1, 2, 3), [1] * 6,
+                          mode="replicate").permute(0, 2, 3, 4, 1)
+    for axis in (1, 2, 3):
+        m = (x.shape[axis] - 3) // stride + 1
+        span = stride * (m - 1) + 1
+        xf = x.float()
+        acc = sum(w * xf.narrow(axis, t, span)[
+            (slice(None),) * axis + (slice(None, None, stride),)]
+            for t, w in enumerate(taps))
+        x = acc.to(x.dtype)
+    return x.contiguous()
+
+
+def max_blur_pool3d(x):
+    """Anti-aliased downsampling (MaxBlurPool): a 2³ max at stride 1, then
+    the binomial blur at stride 2 (``unet3d.py:418``)."""
+    return blur_pool3d(max_pool3d(x, window=2, stride=1), stride=2)
+
+
+def conv_transpose_2x(x, kernel, bias):
+    """Flax's ``ConvTranspose(features, (2, 2, 2), strides=2)`` over NDHWC:
+    ``out[2i+a, 2j+b, 2k+c] = x[i, j, k] @ kernel[1-a, 1-b, 1-c] + bias``
+    (Flax correlates on the dilated input without flipping the kernel).
+    ``kernel`` is ``(2, 2, 2, Cin, Cout)``; one ``(N, Cin) @ (Cin, 8·Cout)``
+    product in ``x.dtype`` and a reshuffle."""
+    b, d, h, w, cin = x.shape
+    cout = kernel.shape[-1]
+    wm = kernel.flip(0, 1, 2).permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
+    y = (x.reshape(-1, cin) @ wm.to(x.dtype)).reshape(b, d, h, w, 2, 2, 2,
+                                                      cout)
+    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, 2 * d, 2 * h, 2 * w,
+                                                  cout)
+    return y + bias.to(x.dtype)
+
+
+def _pad_to(x, shape):
+    """Zero-pad NDHWC ``x`` centred to the spatial ``shape`` (never crops:
+    the encoder's sizes are at least the decoder's after rounding)."""
+    pads = []
+    for axis in (3, 2, 1):  # F.pad lists the last axis first
+        diff = shape[axis - 1] - x.shape[axis]
+        pads += [diff // 2, diff - diff // 2]
+    if any(pads):
+        x = nn.functional.pad(x, [0, 0] + pads)
+    return x
 
 
 @functools.lru_cache(maxsize=128)
@@ -138,17 +209,22 @@ def resize_trilinear(x, target, align_corners=False):
 
 
 class Conv3(nn.Module):
-    """3³ SAME conv without bias; f32 taps pre-packed ``(27, Cin, Cout)``,
-    cast to the compute ``dtype`` on each call.
+    """3³ SAME conv; f32 taps pre-packed ``(27, Cin, Cout)``, cast to the
+    compute ``dtype`` on each call, and an optional f32 ``bias``.
 
     Takes one tensor or a ``(skip, up)`` pair of channel segments and
-    returns ``(y, Σy, Σy²)``.
+    returns ``(y, Σy, Σy²)``. The kernel itself has no bias: ``y + β`` is
+    added in the compute dtype after it, and its sums are shifted on the
+    small ``(B, C)`` tensors, Σ(y+β) = Σy + nβ and
+    Σ(y+β)² = Σy² + 2βΣy + nβ², as the JAX package's blocked path does
+    (``unet3d.py:197-217``); no pass re-reads the activation.
     """
 
-    def __init__(self, cin, cout, dtype=torch.float32):
+    def __init__(self, cin, cout, dtype=torch.float32, bias=False):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(27, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self._cast = None  # (key, taps) cached under inference mode
 
     def taps(self):
@@ -163,7 +239,14 @@ class Conv3(nn.Module):
         return self._cast[1]
 
     def forward(self, xs):
-        return nb_conv3d_stats(xs, self.taps())
+        y, s1, s2 = nb_conv3d_stats(xs, self.taps())
+        if self.bias is None:
+            return y, s1, s2
+        n = y.shape[1] * y.shape[2] * y.shape[3]
+        beta = self.bias.float()
+        s2 = s2 + 2.0 * beta * s1 + n * beta * beta
+        s1 = s1 + n * beta
+        return y + self.bias.to(y.dtype), s1, s2
 
 
 class GroupNorm(nn.Module):
@@ -181,12 +264,12 @@ class DoubleConv(nn.Module):
     """(3³ conv → GroupNorm(gcd(8, C)) → LeakyReLU 0.01) × 2."""
 
     def __init__(self, cin, out_channels, mid_channels=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bias=False):
         super().__init__()
         mid = mid_channels or out_channels
-        self.Conv_0 = Conv3(cin, mid, dtype)
+        self.Conv_0 = Conv3(cin, mid, dtype, bias)
         self.GroupNorm_0 = GroupNorm(mid)
-        self.Conv_1 = Conv3(mid, out_channels, dtype)
+        self.Conv_1 = Conv3(mid, out_channels, dtype, bias)
         self.GroupNorm_1 = GroupNorm(out_channels)
 
     def forward(self, xs):
@@ -198,33 +281,58 @@ class DoubleConv(nn.Module):
 
 
 class Up(nn.Module):
-    """Trilinear ×2, centered pad to the skip's shape, DoubleConv over the
-    segments ``[skip, up]`` (the concat is never built on the card)."""
+    """×2 upsample, centred pad to the skip's shape, DoubleConv over the
+    segments ``[skip, up]`` (the concat is never built on the card).
+
+    Trilinear (``trilinear=True``) keeps the channels and halves them in
+    the mid conv (mid = cat // 2); the transposed conv (submodule
+    ``ConvTranspose_0``, Flax's ``kernel (2, 2, 2, Cin, Cin // 2)`` and
+    ``bias``) halves them itself and the DoubleConv's mid is its output.
+    ``skip=False`` (N2V2's last ``Up``) upsamples and convolves one
+    segment.
+    """
 
     def __init__(self, c_skip, c_up, out_channels, align_corners=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, trilinear=True, skip=True,
+                 bias=False):
         super().__init__()
-        cat = c_skip + c_up
         self.align_corners = align_corners
-        self.DoubleConv_0 = DoubleConv(cat, out_channels, cat // 2, dtype)
+        self.trilinear = trilinear
+        self.skip = skip
+        if not trilinear:
+            self.ConvTranspose_0 = nn.Module()
+            self.ConvTranspose_0.kernel = nn.Parameter(
+                torch.zeros(2, 2, 2, c_up, c_up // 2))
+            self.ConvTranspose_0.bias = nn.Parameter(torch.zeros(c_up // 2))
+            c_up //= 2
+        cat = (c_skip if skip else 0) + c_up
+        mid = cat // 2 if trilinear else None
+        self.DoubleConv_0 = DoubleConv(cat, out_channels, mid, dtype, bias)
 
-    def forward(self, x, skip):
-        x = resize_trilinear(x, tuple(2 * s for s in x.shape[1:4]),
-                             self.align_corners)
-        pads = []
-        for axis in (3, 2, 1):  # F.pad lists the last axis first
-            diff = skip.shape[axis] - x.shape[axis]
-            pads += [diff // 2, diff - diff // 2]
-        if any(pads):
-            x = nn.functional.pad(x, [0, 0] + pads)
+    def forward(self, x, skip=None):
+        if self.trilinear:
+            x = resize_trilinear(x, tuple(2 * s for s in x.shape[1:4]),
+                                 self.align_corners)
+        else:
+            ct = self.ConvTranspose_0
+            x = conv_transpose_2x(x, ct.kernel, ct.bias)
+        if not self.skip:
+            return self.DoubleConv_0(x.contiguous())
+        x = _pad_to(x, skip.shape[1:4])
         return self.DoubleConv_0((skip, x.contiguous()))
 
 
 class UNet(nn.Module):
-    """Residual 3D U-Net: ``(B, D, H, W, 1)`` f32 in, ``x + logits`` out.
+    """Residual 3D U-Net: ``(B, D, H, W, 1)`` f32 in, ``x + logits`` out
+    (the logits alone with ``residual=False``, the value head that
+    blind-spot training needs).
 
     ``dtype`` is the compute dtype (bf16 on the card); GroupNorm
-    statistics and the residual stay f32.
+    statistics and the residual stay f32. ``trilinear=False`` upsamples
+    by transposed convs (the bottleneck is then c5 wide, not c5 / 2);
+    ``conv_bias=True`` gives every 3³ conv a bias (checkpoints of the
+    reference's torch format); ``align_corners=True`` is the reference's
+    ``torch.nn.Upsample`` grid.
     """
 
     def __init__(self, width_multiplier=1.0, trilinear=True,
@@ -232,18 +340,12 @@ class UNet(nn.Module):
                  align_corners=False, residual=True, conv_bias=False,
                  dtype=torch.float32):
         super().__init__()
-        if not trilinear or conv_bias or not residual:
-            raise NotImplementedError(
-                "the port runs trilinear, bias-free, residual UNets; the "
-                "transposed-conv Up, conv_bias and residual=False wait for "
-                "a later slice"
-            )
         chans = [int(c * width_multiplier) for c in base_channels]
         if any(c <= 0 for c in chans):
             raise ValueError(
                 f"width_multiplier={width_multiplier} collapses a stage")
         self.config = {
-            "model": "UNet",
+            "model": type(self).__name__,
             "width_multiplier": width_multiplier,
             "trilinear": trilinear,
             "base_channels": list(base_channels),
@@ -253,26 +355,35 @@ class UNet(nn.Module):
             "conv_bias": conv_bias,
         }
         self.dtype = dtype
+        self.residual = residual
         c1, c2, c3, c4, c5 = chans
-        self.DoubleConv_0 = DoubleConv(1, c1, dtype=dtype)
-        self.DoubleConv_1 = DoubleConv(c1, c2, dtype=dtype)
-        self.DoubleConv_2 = DoubleConv(c2, c3, dtype=dtype)
-        self.DoubleConv_3 = DoubleConv(c3, c4, dtype=dtype)
-        self.DoubleConv_4 = DoubleConv(c4, c5 // 2, dtype=dtype)
-        ac = align_corners
-        self.Up_0 = Up(c4, c5 // 2, c4 // 2, ac, dtype)
-        self.Up_1 = Up(c3, c4 // 2, c3 // 2, ac, dtype)
-        self.Up_2 = Up(c2, c3 // 2, c2 // 2, ac, dtype)
-        self.Up_3 = Up(c1, c2 // 2, c1, ac, dtype)
+        f = 2 if trilinear else 1
+        cb = conv_bias
+        self.DoubleConv_0 = DoubleConv(1, c1, dtype=dtype, bias=cb)
+        self.DoubleConv_1 = DoubleConv(c1, c2, dtype=dtype, bias=cb)
+        self.DoubleConv_2 = DoubleConv(c2, c3, dtype=dtype, bias=cb)
+        self.DoubleConv_3 = DoubleConv(c3, c4, dtype=dtype, bias=cb)
+        self.DoubleConv_4 = DoubleConv(c4, c5 // f, dtype=dtype, bias=cb)
+        up = functools.partial(Up, align_corners=align_corners, dtype=dtype,
+                               trilinear=trilinear, bias=cb)
+        self.Up_0 = up(c4, c5 // f, c4 // f)
+        self.Up_1 = up(c3, c4 // f, c3 // f)
+        self.Up_2 = up(c2, c3 // f, c2 // f)
+        self.Up_3 = self._last_up(up, c1, c2 // f)
         self.Conv_0 = nn.Module()  # 1×1×1 head: kernel (c1, 1), bias (1,)
         self.Conv_0.kernel = nn.Parameter(torch.zeros(c1, 1))
         self.Conv_0.bias = nn.Parameter(torch.zeros(1))
 
+    @staticmethod
+    def _last_up(up, c1, c_up):
+        return up(c1, c_up, c1)
+
     def init_weights(self, seed=0):
         """Flax's initialisers, drawn from ``torch.Generator(seed)``: 3³
-        taps lecun_normal (fan_in 27·Cin), GroupNorm scale 1 and bias 0,
-        head kernel zeros or lecun_normal (``head_init``), head bias 0.
-        Equal to ``UNet.init`` in distribution, not in bits."""
+        taps lecun_normal (fan_in 27·Cin), transposed-conv kernels
+        lecun_normal (fan_in 8·Cin), GroupNorm scale 1, head kernel zeros
+        or lecun_normal (``head_init``), every bias 0. Equal to
+        ``UNet.init`` in distribution, not in bits."""
         if self.config["head_init"] not in ("zeros", "normal"):
             raise ValueError(f"unknown head_init {self.config['head_init']!r}")
         gen = torch.Generator().manual_seed(int(seed))
@@ -281,8 +392,10 @@ class UNet(nn.Module):
                 head = name == "Conv_0.kernel"
                 if name.endswith("kernel") and not (
                         head and self.config["head_init"] == "zeros"):
-                    # fan_in: Cin of the head, 27·Cin of a 3³ conv.
-                    fan_in = p.shape[0] if head else 27 * p.shape[1]
+                    # fan_in: Cin of the head, 8·Cin of a transposed
+                    # conv (2, 2, 2, Cin, Cout), 27·Cin of a 3³ conv.
+                    fan_in = (p.shape[0] if head else 8 * p.shape[3]
+                              if p.dim() == 5 else 27 * p.shape[1])
                     p.copy_(lecun_normal_(torch.empty(p.shape), fan_in, gen))
                 elif name.endswith("scale"):
                     p.fill_(1.0)
@@ -302,12 +415,43 @@ class UNet(nn.Module):
         x = self.Up_1(x, s3)
         x = self.Up_2(x, s2)
         x = self.Up_3(x, s1)
+        return self._head(x, xin)
+
+    def _head(self, x, xin):
         dt = x.dtype
         logits = x @ self.Conv_0.kernel.to(dt) + self.Conv_0.bias.to(dt)
+        if not self.residual:
+            return logits.to(xin.dtype)
         return xin + logits.to(xin.dtype)
 
 
-MODEL_REGISTRY = {"UNet": UNet}
+class N2V2UNet(UNet):
+    """Noise2Void2 variant (``unet3d.py:721``): the encoder pools through
+    :func:`max_blur_pool3d`, the last ``Up`` has no s1 skip, and the last
+    activation is zero-padded back to the input's extent (centred) when the
+    pools' rounding shrank it. The same parameters and names as
+    :class:`UNet`; every 3³ conv, the encoder's too, runs the kernel."""
+
+    @staticmethod
+    def _last_up(up, c1, c_up):
+        return up(0, c_up, c1, skip=False)
+
+    def forward(self, x):
+        xin = x
+        x = x.to(self.dtype)
+        s1 = self.DoubleConv_0(x)
+        s2 = self.DoubleConv_1(max_blur_pool3d(s1))
+        s3 = self.DoubleConv_2(max_blur_pool3d(s2))
+        s4 = self.DoubleConv_3(max_blur_pool3d(s3))
+        x = self.DoubleConv_4(max_blur_pool3d(s4))
+        x = self.Up_0(x, s4)
+        x = self.Up_1(x, s3)
+        x = self.Up_2(x, s2)
+        x = self.Up_3(x)
+        return self._head(_pad_to(x, xin.shape[1:4]), xin)
+
+
+MODEL_REGISTRY = {"UNet": UNet, "N2V2UNet": N2V2UNet}
 
 
 def build_model(config, dtype=torch.float32, device="cuda"):

@@ -16,12 +16,17 @@ the train state as Flax stores the reference's ``TrainState``: ``step``,
 torch's AdamW keeps the same numbers per parameter: ``exp_avg`` is ``mu``,
 ``exp_avg_sq`` is ``nu`` and its ``step`` is ``count``. So a state written
 by either package resumes in the other.
+
+:func:`import_torch_checkpoint` converts a checkpoint of the upstream
+reference package (a torch ``.pth``) into the port's model, and can write
+it as this package's msgpack.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import re
 from collections.abc import Mapping
 from datetime import datetime
@@ -38,6 +43,7 @@ __all__ = [
     "find_best_checkpoint",
     "params_from_flax",
     "params_to_flax",
+    "import_torch_checkpoint",
     "restore_pipeline",
     "save_train_state",
     "restore_train_state",
@@ -102,7 +108,9 @@ def params_from_flax(tree):
     Names carry over as dotted paths (``DoubleConv_0/Conv_1/kernel`` →
     ``DoubleConv_0.Conv_1.kernel``); 3³ DHWIO kernels ``(3, 3, 3, Cin, Cout)``
     are packed to ``(27, Cin, Cout)`` and the 1×1×1 head kernel to
-    ``(Cin, 1)``. Values stay f32, as the model's master params.
+    ``(Cin, 1)``; a transposed conv's ``(2, 2, 2, Cin, Cout)`` kernel and
+    every bias keep their shape. Values stay f32, as the model's master
+    params.
     """
     sd = {}
     for key, leaf in _flatten(tree):
@@ -113,7 +121,7 @@ def params_from_flax(tree):
                 a = a.reshape(27, a.shape[3], a.shape[4])
             elif kd == (1, 1, 1):
                 a = a.reshape(a.shape[3], a.shape[4])
-            else:
+            elif kd != (2, 2, 2):
                 raise ValueError(f"{key}: unsupported kernel shape {a.shape}")
         sd[key] = torch.from_numpy(a)
     return sd
@@ -123,13 +131,14 @@ def params_to_flax(state_dict):
     """Inverse of :func:`params_from_flax`: the port's state dict → the
     Flax param tree of f32 numpy arrays (``(27, Cin, Cout)`` taps back to
     DHWIO ``(3, 3, 3, Cin, Cout)``, the ``(Cin, 1)`` head to
-    ``(1, 1, 1, Cin, 1)``)."""
+    ``(1, 1, 1, Cin, 1)``; transposed-conv kernels as they are)."""
     tree = {}
     for key, t in state_dict.items():
         a = t.detach().to("cpu", torch.float32).numpy().copy()
-        if key.endswith("kernel"):
-            a = a.reshape((3, 3, 3) + a.shape[1:] if a.ndim == 3
-                          else (1, 1, 1) + a.shape)
+        if key.endswith("kernel") and a.ndim == 3:
+            a = a.reshape((3, 3, 3) + a.shape[1:])
+        elif key.endswith("kernel") and a.ndim == 2:
+            a = a.reshape((1, 1, 1) + a.shape)
         *path, leaf = key.split(".")
         node = tree
         for p in path:
@@ -166,6 +175,135 @@ def restore_pipeline(path, dtype=torch.bfloat16, device="cuda"):
     model = build_model(ckpt["model_config"], dtype=dtype, device=device)
     model.load_state_dict(params_from_flax(ckpt["params"]))
     return model, build_transform(ckpt["transform"])
+
+
+def _torch_double_conv(sd, prefix, name):
+    """One reference ``DoubleConv`` (``Sequential(Conv3d, GroupNorm,
+    LeakyReLU, Conv3d, GroupNorm, LeakyReLU)``) → the port's parameters
+    under ``name``: torch's ``(Cout, Cin, 3, 3, 3)`` weights packed to
+    ``(27, Cin, Cout)``, the conv biases kept (GroupNorm cannot absorb a
+    per-channel shift across a group)."""
+    out = {}
+    for i, (ci, gi) in enumerate(((0, 1), (3, 4))):
+        w = sd[f"{prefix}.{ci}.weight"]
+        out[f"{name}.Conv_{i}.kernel"] = w.permute(2, 3, 4, 1, 0).reshape(
+            27, w.shape[1], w.shape[0])
+        out[f"{name}.Conv_{i}.bias"] = sd[f"{prefix}.{ci}.bias"]
+        out[f"{name}.GroupNorm_{i}.scale"] = sd[f"{prefix}.{gi}.weight"]
+        out[f"{name}.GroupNorm_{i}.bias"] = sd[f"{prefix}.{gi}.bias"]
+    return out
+
+
+def _port_torch_state_dict(sd, trilinear):
+    """The reference's UNet / N2V2UNet state dict (torch tensors) → the
+    port's state dict. Key layout: the reference's ``inc``,
+    ``down{i}.maxpool_conv.1``, ``up{i}.conv``, ``up{i}.up`` (transposed
+    conv) and ``outc.conv``; N2V2's blur kernels are buffers the port
+    derives, not parameters. Every value is a pure transpose of the f32
+    weights."""
+    p = _torch_double_conv(sd, "inc.double_conv", "DoubleConv_0")
+    for i in range(1, 5):
+        p.update(_torch_double_conv(
+            sd, f"down{i}.maxpool_conv.1.double_conv", f"DoubleConv_{i}"))
+        p.update(_torch_double_conv(sd, f"up{i}.conv.double_conv",
+                                    f"Up_{i - 1}.DoubleConv_0"))
+        if not trilinear:
+            # torch's (Cin, Cout, 2, 2, 2) scatter kernel → Flax's
+            # (2, 2, 2, Cin, Cout), spatially flipped: Flax correlates on
+            # the dilated input.
+            w = sd[f"up{i}.up.weight"]
+            p[f"Up_{i - 1}.ConvTranspose_0.kernel"] = w.permute(
+                2, 3, 4, 0, 1).flip(0, 1, 2)
+            p[f"Up_{i - 1}.ConvTranspose_0.bias"] = sd[f"up{i}.up.bias"]
+    w = sd["outc.conv.weight"]
+    p["Conv_0.kernel"] = w.reshape(w.shape[0], w.shape[1]).t()
+    p["Conv_0.bias"] = sd["outc.conv.bias"]
+    return {k: v.to(torch.float32).contiguous() for k, v in p.items()}
+
+
+def import_torch_checkpoint(path, out_path=None, *, dtype=None,
+                            device="cuda"):
+    """Convert a checkpoint of the upstream reference package (``.pt`` /
+    ``.pth``) into the port's model.
+
+    Reads both of the reference's formats: the dict ``{"model":
+    state_dict, "transform": cfg, "model_config": cfg}`` and a legacy bare
+    state dict (transform asinh). The family (a ``down1.maxpool_conv.0.*``
+    key, N2V2's blur buffer, marks ``N2V2UNet``), ``trilinear`` (whether
+    ``up1.up.weight`` exists) and the width come from ``model_config``
+    where it has them, else from the state dict; an unknown
+    ``model_config`` key or a width that disagrees with the weights
+    raises, and so does any difference between the converted parameters
+    and the model's own (names and shapes). The model is built with
+    ``conv_bias=True`` and ``align_corners=True``, the reference's
+    ``torch.nn.Upsample`` grid, so the conversion is exact.
+
+    Returns ``(model, transform)``, as :func:`restore_pipeline` does, with
+    the weights loaded and the model on ``device`` in ``dtype`` (default
+    bf16 on the card, f32 on the CPU). The JAX package's
+    ``import_torch_checkpoint`` returns ``(model, params, transform)``
+    instead, because its params live apart from its model; here they are
+    ``model.state_dict()``. With ``out_path`` the converted checkpoint is
+    also written in the msgpack format, which :func:`restore_pipeline` of
+    either package reads.
+    """
+    from exaspim_tpu_torch.models import build_model
+    from exaspim_tpu_torch.transforms import build_transform
+
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # Older files pickle their configs: the file is user-supplied
+        # training output, trusted as any checkpoint the reference loads.
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, Mapping) and "model" in ckpt:
+        state_dict = ckpt["model"]
+        transform_cfg = ckpt.get("transform") or {"kind": "asinh"}
+        model_cfg = dict(ckpt.get("model_config") or {})
+    else:  # a legacy bare state dict
+        state_dict, transform_cfg, model_cfg = ckpt, {"kind": "asinh"}, {}
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()
+          if isinstance(v, torch.Tensor)}
+
+    model_type = model_cfg.pop("model", None)
+    if model_type is None:
+        is_n2v2 = any(k.startswith("down1.maxpool_conv.0.") for k in sd)
+        model_type = "N2V2UNet" if is_n2v2 else "UNet"
+    trilinear = bool(model_cfg.pop("trilinear", "up1.up.weight" not in sd))
+    c1 = int(sd["inc.double_conv.0.weight"].shape[0])
+    width = float(model_cfg.pop("width_multiplier", c1 / 32.0))
+    if int(32 * width) != c1:
+        raise ValueError(
+            f"checkpoint width_multiplier={width} disagrees with the "
+            f"state_dict ({c1} first-stage channels)")
+    residual = bool(model_cfg.pop("residual", True))
+    if model_cfg:
+        raise ValueError(f"unrecognized reference model_config keys: "
+                         f"{sorted(model_cfg)}")
+    config = {"model": model_type, "width_multiplier": width,
+              "trilinear": trilinear, "residual": residual,
+              "align_corners": True, "conv_bias": True}
+    if dtype is None:
+        dtype = (torch.float32 if torch.device(device).type == "cpu"
+                 else torch.bfloat16)
+    params = _port_torch_state_dict(sd, trilinear)
+    model = build_model(config, dtype=dtype, device="cpu")
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    if want.keys() != got.keys():
+        raise ValueError(
+            f"ported tree is missing {sorted(want.keys() - got.keys())}, "
+            f"has extra {sorted(got.keys() - want.keys())}")
+    for name, shape in want.items():
+        if got[name] != shape:
+            raise ValueError(f"{name}: ported shape {got[name]} != model "
+                             f"shape {shape}")
+    model.load_state_dict(params)
+    model.to(device)
+    if out_path is not None:
+        save_checkpoint(out_path, params, model.config, transform_cfg,
+                        extra={"imported_from": os.path.abspath(path)})
+    return model, build_transform(transform_cfg)
 
 
 def _write_atomic(path, blob):

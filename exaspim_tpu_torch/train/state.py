@@ -26,6 +26,7 @@ import torch
 
 from exaspim_tpu_torch.data.loader import counts_f32
 from exaspim_tpu_torch.losses import signal_preserving_loss
+from exaspim_tpu_torch.train import prng
 
 __all__ = [
     "TrainState",
@@ -181,45 +182,12 @@ def orient_batch(batch, code):
     return batch
 
 
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32 with 20 rounds on one pair of uint32 words, as
-    ``jax._src.prng`` applies it (key schedule with 0x1BD11BDA, an
-    injection after every 4 rounds)."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
-
-
 def orientation_code(seed, step):
     """The orientation code in [0, 48) of train step ``step``:
-    ``jax.random.randint(fold_in(key(seed), step), (), 0, 48)`` in plain
-    integers. The key of an int32 seed is ``(0, seed)``; ``fold_in`` hashes
-    the count pair ``(0, step)``; ``split`` hashes ``(0, 0)`` and
-    ``(0, 1)`` into two keys; each gives 32 random bits as the XOR of the
-    two words it hashes from ``(0, 0)``; ``randint`` then takes
-    ``(hi mod 48 · (2^32 mod 48) + lo mod 48) mod 48``."""
-    seed, step = int(seed), int(step)
-    if not -2 ** 31 <= seed < 2 ** 31:
-        raise ValueError(f"the seed must be an int32, got {seed}")
-    key = _threefry2x32(0, seed & _M32, 0, step & _M32)
-    bits = []
-    for i in (0, 1):
-        sub = _threefry2x32(*key, 0, i)
-        w0, w1 = _threefry2x32(*sub, 0, 0)
-        bits.append(w0 ^ w1)
-    span = 48
-    multiplier = ((1 << 16) % span) ** 2 % span
-    return ((bits[0] % span) * multiplier + bits[1] % span) % span
+    ``jax.random.randint(fold_in(key(seed), step), (), 0, 48)``, drawn in
+    plain integers by :mod:`exaspim_tpu_torch.train.prng`."""
+    k = prng.fold_in(prng.key(seed), int(step))
+    return int(prng.randint(k, (), 0, 48))
 
 
 def make_cached_train_step(fg_weight=20.0, eps=1e-3, transform=None,

@@ -57,6 +57,12 @@ class IntensityTransform:
         """Maps normalized values to unclipped float32 counts."""
         raise NotImplementedError
 
+    def inverse_float_smooth(self, y):
+        """:meth:`inverse_float` without flat clamps, for losses that
+        differentiate through the inverse; the same map where that one is
+        not clamped."""
+        return self.inverse_float(y)
+
     def inverse_counts(self, y):
         """Maps normalized values to raw counts kept on ``y``'s device: an
         int32 tensor of 0..max_count (the quantization of :meth:`inverse`)."""
@@ -128,6 +134,16 @@ class AnscombeTransform(IntensityTransform):
             arg - self._c_inv * self.gain ** 2 - self.read_noise ** 2
         ) / self.gain
 
+    def inverse_float_smooth(self, y):
+        # Sign-extended: d² → d·|d| keeps the map odd and monotone below
+        # y = 0 where inverse_float clamps (zero gradient), and equals it
+        # for y ≥ 0.
+        d = _f32(y) * self._norm
+        arg = d * torch.abs(d) * (self.gain / 2.0) ** 2
+        return self.offset + (
+            arg - self._c_inv * self.gain ** 2 - self.read_noise ** 2
+        ) / self.gain
+
 
 @dataclasses.dataclass(frozen=True)
 class LinearClipTransform(IntensityTransform):
@@ -178,6 +194,9 @@ class OffsetTransform(IntensityTransform):
 
     def inverse_float(self, y):
         return self.base_transform.inverse_float(y) + self.offset
+
+    def inverse_float_smooth(self, y):
+        return self.base_transform.inverse_float_smooth(y) + self.offset
 
 
 class IdentityTransform(IntensityTransform):

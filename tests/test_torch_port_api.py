@@ -39,10 +39,9 @@ PACKAGES = ("", "ops", "data", "train", "models", "compression", "utils")
 
 #: reference names whose function is not ported yet (ROADMAP.md §1).
 NOT_PORTED = {
-    "N2V2UNet", "highfreq_energy_fraction", "local_autocorr",
+    "highfreq_energy_fraction", "local_autocorr",
     "make_segmentation_mask", "make_skeleton_mask",
     "patch_has_incoherent_segment", "make_train_collate", "make_val_collate",
-    "import_torch_checkpoint", "make_blind_spots", "make_n2v_train_step",
     "Jpeg2000SliceCodec", "JpegSliceCodec", "PngSliceCodec", "JxlSliceCodec",
     "jxl_available", "compute_cratio_2d", "compute_cratio_jpegxl",
     "compress_and_decompress_2d", "ANISOTROPY", "Reader", "cloud",

@@ -782,3 +782,56 @@ def test_foreground_mask_on_the_card(dilate):
             torch.from_numpy(vol.astype(np.int32)).cuda(), dilate=dilate)
         assert got.is_cuda
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_n2v_blind_spots_on_the_card():
+    """The blind-spot draw of a training batch, made on the card in int64
+    tensor arithmetic, has the CPU draw's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from exaspim_tpu_torch.train import prng
+    from exaspim_tpu_torch.train.n2v import make_blind_spots
+
+    for seed, step in ((0, 0), (5, 0), (3, 4321)):
+        key = prng.fold_in(prng.key(seed), step)
+        m_card, s_card = make_blind_spots(key, (16, 64, 64, 64))
+        m_cpu, s_cpu = make_blind_spots(key, (16, 64, 64, 64), device="cpu")
+        assert m_card.is_cuda and torch.equal(m_card.cpu(), m_cpu)
+        assert torch.equal(s_card, s_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,kw", [
+    ("UNet", dict(conv_bias=True, trilinear=False, residual=False,
+                  align_corners=True)),
+    ("N2V2UNet", dict(residual=False)),
+], ids=["transposed-bias-value", "n2v2"])
+def test_new_families_on_the_kernels(family, kw):
+    """Every 3³ conv of the new families (N2V2's encoder included) runs
+    the kernel: 18 forward launches, and in a backward 17 dL/dx and 18
+    dL/dW launches; the output stays within bf16 reach of the f32 CPU
+    model (relative L2 of 2e-2, about four times the width-0.3 readings
+    of chip_smoke.py phase 10b)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from exaspim_tpu_torch.models import MODEL_REGISTRY
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw
+
+    cls = MODEL_REGISTRY[family]
+    cpu = cls(width_multiplier=0.5, head_init="normal", **kw).init_weights(1)
+    card = cls(width_multiplier=0.5, head_init="normal",
+               dtype=torch.bfloat16, **kw).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        0.5, 0.2, (2, 33, 32, 34, 1)).astype(np.float32))
+    c0, d0 = nb_conv3d.launches, nb_conv3d_dw.launches
+    y = card(x.cuda())
+    assert nb_conv3d.launches - c0 == 18
+    y.float().square().mean().backward()
+    assert nb_conv3d.launches - c0 == 18 + 17
+    assert nb_conv3d_dw.launches - d0 == 18
+    with torch.no_grad():
+        ref = cpu(x)
+    rel = ((y.detach().cpu() - ref).norm() / ref.norm()).item()
+    assert np.isfinite(rel) and rel <= 2e-2
