@@ -150,7 +150,34 @@ line:
     64³) held and timed as phase 7 holds its own; then ``train_n2v.main`` for 300 steps on 128 patches (its other flags
     at the JAX script's defaults), counted: 35 conv and 18 dL/dW launches
     a step, 72 conv launches of the held-out predict, one histogram
-    launch; losses finite and falling, scores finite, ``step_s``.
+    launch; losses finite and falling, scores finite, ``step_s``;
+22. live teachers: two brains of 512³ uint16 written as TIFF stacks (the
+    card's machine has no tensorstore): phase 4's block mirror-tiled with
+    a pedestal of 37 counts and a labelled segmentation of its foreground,
+    and the same phantom with z and x swapped, its own noise, mirror-tiled
+    with an SWC trace on its foreground;
+    ``precompute(source="live", n=64)`` at its defaults (64³, σ 24,
+    coherence gate on) on the card: seconds a patch after the brains are
+    read, exactly two ``match_topk`` launches a patch; each teacher's RMSE
+    against the clean phantom below the raw patch's; each mask the
+    annotation's (on brain a the segmented foreground under the patch; on
+    brain b covering every trace node inside, empty exactly when there is
+    none); four of the patches,
+    as a batch, through the fused matcher equal to its plain version;
+23. production-scale training at phase 10's configuration (width 1.0,
+    bf16, batch 32 of 64³) on phase 10's caches, three ways: resident,
+    streamed (``device_cache="auto"`` with ``device_cache_budget`` below
+    the cache) and sharded (a forced ``device_cache=True`` whose budget
+    holds one batch: 4 shards of 32 rows); each the window step of two
+    ``train()`` runs (2 and 6 epochs), the counted launches, the peak
+    device memory and the per-shard upload seconds of the longer run, and
+    the idle share of a third, profiled ``train()`` of 3 epochs over its
+    epochs 2-3 (busy = the union of the device intervals; the trace held
+    complete first); then the loader alone at 0 and 4 worker processes,
+    in batches a second, on the cache and on phantoms made per item. Fails unless the losses are
+    finite and fall, the shard index stream equals ``SeedSequence([seed,
+    epoch, s])``'s and the sharded run's peak memory stays below the
+    resident run's plus one shard (its cache footprint under two shards).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -173,6 +200,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "bm4dnet.msgpack")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 WORK = os.path.join(ROOT, "chip_smoke_work")  # caches + runs, removed after
+# Phase 10's caches, kept from phase 6 to phase 23, removed after.
+CACHES = os.path.join(ROOT, "chip_smoke_caches")
 KERNELS = ("nb_conv3d", "nb_conv3d_dw", "byte_histogram", "bm4d_match",
            "bm4d_select", "asinh_transform", "blocked_conv3d")
 BLOCK, OVERLAP, TRIM = 256, 12, 5
@@ -240,6 +269,18 @@ TEACHER_MAX_COUNTS, TEACHER_MAX_SHARE = 1, 1e-3
 # few f32 ulps; against AsinhTransform (true asinh) the log-form identity.
 ASINH_MAX_ULPS, ASINH_ATOL, ASINH_INV_SHARE = 4, 1e-6, 1e-3
 WINDOW_EPOCHS = (2, 10)  # of 4 steps: the step-time window is 32 steps
+# Live teachers (phase 22): two brains of LIVE_SIDE^3, the first stored with
+# a pedestal of LIVE_OFFSET counts; every LIVE_SWC_STRIDE-th foreground
+# voxel of the second is a trace node; LIVE_N patches at precompute()'s
+# defaults (64^3, sigma 24, coherence gate on).
+LIVE_SIDE, LIVE_OFFSET, LIVE_SWC_STRIDE, LIVE_N = 512, 37, 200, 64
+# Production-scale training (phase 23): the step window of each path (a
+# 16-step window: phase 10's is 32); the loader alone at these worker
+# counts, timed over LOADER_EPOCHS epochs of phase 10's cache after
+# LOADER_WARM, and over one epoch of LOADER_PHANTOMS phantom items.
+SCALE_WINDOW_EPOCHS = (2, 6)
+SCALE_PROFILE_EPOCHS = 3  # the profiled train(): epochs 2-3 are its window
+LOADER_WORKERS, LOADER_WARM, LOADER_EPOCHS, LOADER_PHANTOMS = (0, 4), 4, 4, 64
 # Blocked conv check (phase 14), (B, D, H, W, Cin, Cout): the bench's three
 # shapes, the two channel changes, a plane with H/2·W/2 < 256, and a volume
 # whose extents are even but no multiple of the kernel's 4 x 4 x 8 tile.
@@ -880,11 +921,11 @@ def grad_check(width=1.0, faults=FAULTS):
 def make_caches(transform_cfg):
     from exaspim_tpu_torch.data.synthetic import make_synthetic_cache
 
-    shutil.rmtree(WORK, ignore_errors=True)
+    shutil.rmtree(CACHES, ignore_errors=True)
     t0 = time.time()
     dirs = []
     for split, n, seed in (("train", N_TRAIN, 42), ("val", N_VAL, 43)):
-        d = os.path.join(WORK, split)
+        d = os.path.join(CACHES, split)
         make_synthetic_cache(d, n, (PATCH,) * 3, transform_cfg, seed=seed)
         dirs.append(d)
     print(f"caches: {N_TRAIN} train + {N_VAL} val {PATCH}^3 patches in "
@@ -2626,10 +2667,459 @@ def n2v_path():
     return rec
 
 
+def write_tiff(path, vol):
+    """A 3D uint16 volume as a multi-page TIFF (PIL), which the port's
+    ``img_io.read`` opens without tensorstore (absent on the card's
+    machine)."""
+    from PIL import Image
+
+    frames = [Image.fromarray(np.ascontiguousarray(s)) for s in vol]
+    frames[0].save(path, save_all=True, append_images=frames[1:])
+
+
+def live_brains(img, clean, fg):
+    """Phase 22's two brains of ``LIVE_SIDE``³ uint16 under ``WORK/live``:
+    (a) phase 4's block (``img``, ``clean``, ``fg``) mirror-tiled, stored
+    with a pedestal of ``LIVE_OFFSET`` that the spec's offset subtracts,
+    with a labelled segmentation of its foreground (connected tube
+    components); (b) the same phantom with z and x swapped and its own
+    noise (seed 6), mirror-tiled, offset 0, with an SWC trace whose nodes
+    lie on its foreground. Returns the brain-spec path, the clean volumes
+    by brain id, brain a's foreground (its labels > 0) and b's trace nodes
+    as (z, y, x) voxels."""
+    from scipy import ndimage
+
+    from exaspim_tpu_torch.data.synthetic import noisy_observation
+    from exaspim_tpu_torch.utils.swc import ANISOTROPY
+
+    d = os.path.join(WORK, "live")
+    os.makedirs(d, exist_ok=True)
+
+    def tile(v):
+        return np.pad(v, [(0, LIVE_SIDE - n) for n in v.shape],
+                      mode="symmetric")
+
+    clean_b, fg_b = clean.transpose(2, 1, 0), fg.transpose(2, 1, 0)
+    noisy_b = noisy_observation(clean_b, seed=6)
+    labels, n_labels = ndimage.label(tile(fg))
+    write_tiff(os.path.join(d, "a.tif"), tile(img) + np.uint16(LIVE_OFFSET))
+    write_tiff(os.path.join(d, "a_seg.tif"), labels.astype(
+        np.uint8 if n_labels < 256 else np.uint16))
+    write_tiff(os.path.join(d, "b.tif"), tile(noisy_b))
+    # Trace nodes at voxel centres of b's foreground, in physical (x, y, z)
+    # micrometres, one chain ordered along z.
+    nodes = np.argwhere(tile(fg_b))[::LIVE_SWC_STRIDE]
+    xyz = (nodes[:, ::-1] + 0.5) * np.asarray(ANISOTROPY)
+    with open(os.path.join(d, "b.swc"), "w") as f:
+        f.write("# nodes on brain b's foreground\n")
+        for i, (x, y, z) in enumerate(xyz, 1):
+            f.write(f"{i} 3 {x:.4f} {y:.4f} {z:.4f} 1.0 "
+                    f"{i - 1 if i > 1 else -1}\n")
+    spec = [{"brain_id": "a", "img": os.path.join(d, "a.tif"),
+             "segmentation": os.path.join(d, "a_seg.tif"),
+             "offset": LIVE_OFFSET},
+            {"brain_id": "b", "img": os.path.join(d, "b.tif"),
+             "swc": os.path.join(d, "b.swc")}]
+    path = os.path.join(d, "brains.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    print(f"brains: a {LIVE_SIDE}^3 (offset {LIVE_OFFSET}, {n_labels} "
+          f"labelled segments), b {LIVE_SIDE}^3 ({len(nodes)} SWC nodes)",
+          flush=True)
+    return path, {"a": tile(clean), "b": tile(clean_b)}, tile(fg), nodes
+
+
+def live_path(img, clean, fg):
+    """Phase 22 (see the module docstring). Returns the record."""
+    import torch
+
+    from exaspim_tpu_torch.data import live
+    from exaspim_tpu_torch.data.cache import CachedPatchDataset
+    from exaspim_tpu_torch.data.precompute import precompute
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.utils.img_io import get_patch
+
+    t0 = time.perf_counter()
+    spec, cleans, fg_a, nodes_b = live_brains(img, clean, fg)
+    make_s = time.perf_counter() - t0
+    drawn, init_s = [], []
+    sample, init = live.TrainDataset.sample_example, live.init_datasets
+
+    def recording(self):
+        ex = sample(self)
+        drawn.append(ex[3:])
+        return ex
+
+    def timed_init(*args, **kw):
+        t = time.perf_counter()
+        out = init(*args, **kw)
+        init_s.append(time.perf_counter() - t)
+        return out
+
+    out = os.path.join(WORK, "live", "cache")
+    torch.cuda.synchronize()
+    match_topk.launches = 0
+    t0 = time.perf_counter()
+    with swapped(live.TrainDataset, sample_example=recording), \
+            swapped(live, init_datasets=timed_init):
+        precompute(out, split="train", source="live", config=spec, n=LIVE_N,
+                   patch=(PATCH,) * 3)  # the script's default
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = match_topk.launches
+    per_patch = (wall - init_s[0]) / LIVE_N
+    print(f"precompute(source='live', n={LIVE_N}) in {wall:.2f} s: brains "
+          f"read and ingested in {init_s[0]:.2f} s, then {per_patch:.4f} s "
+          f"a patch (sampling, masks, gate, BM4D teacher); match_topk "
+          f"launches {launches} (expected {2 * LIVE_N})", flush=True)
+    if launches != 2 * LIVE_N:
+        fail(f"live teachers launched match_topk {launches} times, expected "
+             f"{2 * LIVE_N}")
+    ds = CachedPatchDataset(out)
+    ratios, by_brain, masked = [], Counter(), Counter()
+    for i, (brain, voxel) in enumerate(drawn):
+        raw, teacher, mask = ds[i]
+        ref = get_patch(cleans[brain], voxel, (PATCH,) * 3).astype(np.float64)
+        rmse_t = float(np.sqrt(np.mean((teacher - ref) ** 2)))
+        rmse_r = float(np.sqrt(np.mean((raw - ref) ** 2)))
+        ratios.append(rmse_t / rmse_r)
+        by_brain[brain] += 1
+        if not rmse_t < rmse_r:
+            fail(f"live patch {i} ({brain} at {voxel}): teacher RMSE "
+                 f"{rmse_t:.3f} not below the raw patch's {rmse_r:.3f}")
+        # The masks against the annotations as written: brain a's is its
+        # segmentation (labels > 0, no dilation at the defaults), so the
+        # foreground under the patch; brain b's is its trace, dilated, so
+        # it covers every node inside the patch and is empty exactly when
+        # none is (a uniform draw far from the trace, as in the reference).
+        start = np.asarray(voxel) - PATCH // 2
+        if brain == "a":
+            want = get_patch(fg_a, voxel, (PATCH,) * 3).astype(bool)
+            ok = np.array_equal(mask, want)
+        else:
+            local = nodes_b - start
+            local = local[np.all((local >= 0) & (local < PATCH), axis=1)]
+            ok = bool(mask.any()) == bool(len(local)) and bool(
+                mask[tuple(local.T)].all())
+        if not ok:
+            fail(f"live patch {i} ({brain} at {voxel}): its mask "
+                 f"({int(mask.sum())} voxels) is not the annotation's")
+        masked[brain] += bool(mask.any())
+    print(f"teachers vs clean: RMSE ratio teacher/raw mean "
+          f"{np.mean(ratios):.4f}, worst {max(ratios):.4f} (all < 1); "
+          f"patches by brain {dict(by_brain)}, with a non-empty mask "
+          f"{dict(masked)}, each mask the annotation's (a: the segmented "
+          f"foreground; b: the trace nodes inside); brains made in "
+          f"{make_s:.2f} s", flush=True)
+    raws = torch.from_numpy(np.stack([ds[i][0] for i in range(4)]).astype(
+        np.float32)).cuda()
+    err = check_fused("4 live raw patches (a batch)", raws)
+    return {"wall_s": wall, "init_s": init_s[0], "brains_s": make_s,
+            "s_per_patch": per_patch, "launches": launches,
+            "rmse_ratio_mean": float(np.mean(ratios)),
+            "rmse_ratio_max": float(max(ratios)), "by_brain": dict(by_brain),
+            "masked": dict(masked),
+            "matcher_max_abs_err": err}
+
+
+def loader_rates(train_dir):
+    """Batches a second of the streaming loader alone at each of
+    ``LOADER_WORKERS``: phase 10's cache (batch 32 of 64³, count collate)
+    after ``LOADER_WARM`` epochs (each worker faults in the pages it reads
+    once), host-only and through ``prefetch_to_device`` (pinned, copied to
+    the card); then one epoch of a dataset whose items cost host work,
+    phantoms with their Gaussian teacher (``LOADER_PHANTOMS`` 64³ items,
+    batch 8)."""
+    import torch
+
+    from exaspim_tpu_torch.data.cache import CachedPatchDataset
+    from exaspim_tpu_torch.data.loader import (
+        DataLoader,
+        make_count_train_collate,
+        prefetch_to_device,
+    )
+    from exaspim_tpu_torch.data.synthetic import SyntheticPatchDataset
+
+    def rate(loader, wrap, epochs):
+        n = 0
+        t0 = time.perf_counter()
+        for epoch in range(epochs):
+            loader.set_epoch(epoch)
+            for _ in wrap(loader):
+                n += 1
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    ds = CachedPatchDataset(train_dir)
+    phantoms = SyntheticPatchDataset(n=LOADER_PHANTOMS, seed=3)
+    out = {}
+    for w in LOADER_WORKERS:
+        loader = DataLoader(ds, 32, make_count_train_collate(), shuffle=True,
+                            seed=42, num_workers=w)
+        try:
+            rate(loader, iter, LOADER_WARM)
+            for name, wrap in (("host", iter),
+                               ("to_card", prefetch_to_device)):
+                out[f"workers{w}_{name}"] = rate(loader, wrap, LOADER_EPOCHS)
+        finally:
+            loader.close()
+        loader = DataLoader(phantoms, 8, make_count_train_collate(),
+                            num_workers=w)
+        try:
+            out[f"workers{w}_phantoms"] = rate(loader, iter, 1)
+        finally:
+            loader.close()
+    print("loader alone, batches/s (cache: 32 x 64^3, count collate; "
+          "phantoms: 8 x 64^3): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def profiled_window(run, steps, end_at, n_steps, spe, step_mark, end_mark,
+                    mode):
+    """Profile ``run`` (a ``train()`` of ``n_steps`` steps whose recorded
+    steps carry ``step_mark`` and whose last step ends in a drain and
+    ``end_mark``) and report the window from the host's end of step
+    ``spe`` to the mark. The trace is held first: every step's 35 conv
+    launches start in the window, and the card's last kernel ends just
+    before the mark, which follows a drain (a device clock converted with
+    a wrong rate breaks both). None, with the reason printed, otherwise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    steps.clear()
+    end_at[0] = n_steps
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        end_at[0] = 0
+    marks = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CPU
+                   and ev.name in (step_mark, end_mark))
+    step_ranges = [m for m in marks if m[2] == step_mark]
+    ends = [m for m in marks if m[2] == end_mark]
+    if len(step_ranges) != n_steps or len(ends) != 1:
+        print(f"{mode}: profile marks {len(step_ranges)} steps, {len(ends)} "
+              "ends (not measured)", flush=True)
+        return None
+    lo, hi = step_ranges[spe - 1][1], ends[0][0]
+    dev = device_intervals(prof, (step_mark, end_mark))
+    convs = sum(lo <= a < hi and "nb_conv3d_kernel" in name
+                for a, _, name in dev)
+    last_end = max((b for a, b, _ in dev if a < hi), default=float("-inf"))
+    want = 35 * (n_steps - spe)
+    if convs < want or not -500 <= hi - last_end <= 5000:
+        print(f"{mode}: trace not held ({convs} conv launches in the window, "
+              f"{want} expected; the card's last kernel ends "
+              f"{(hi - last_end) / 1e3:.3f} ms before the drained mark, "
+              "expected 0-5): not measured", flush=True)
+        return None
+    print(f"{mode}: profiled train() ({n_steps // spe} epochs), window of "
+          f"epochs 2-{n_steps // spe}: {(hi - lo) / 1e6 / (n_steps - spe):.4f}"
+          f" s a step under the profiler; {convs} conv launches start in it,"
+          f" the last kernel ends {(hi - last_end) / 1e3:.3f} ms before the "
+          "mark", flush=True)
+    return profile_report(prof, ("nb_conv3d_kernel", "dw_", "Memcpy"),
+                          (hi - lo) / 1e6, lo=lo, hi=hi,
+                          skip=(step_mark, end_mark))
+
+
+def scale_path(train_dir, val_dir, resident_step):
+    """Phase 23 (see the module docstring); ``resident_step``: phase 10's
+    window step. Returns the record."""
+    import torch
+    from torch.profiler import record_function
+
+    from exaspim_tpu_torch.compression.proxy import chunk_byte_histograms
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.train import trainer as tt
+    from exaspim_tpu_torch.train.train_bm4dnet import train
+
+    cfg = dict(batch_size=32, lr=1e-3, fg_weight=0.0, seed=42,
+               width_multiplier=1.0, bf16=True, exact_cratio_examples=0,
+               device="cuda")
+    row_b = 2 * 2 * PATCH ** 3  # raw + teacher rows, uint16 (fg not needed)
+    cache_b, shard_b = N_TRAIN * row_b, 32 * row_b
+    modes = {"resident": dict(device_cache="auto"),
+             # A budget below the cache: "auto" streams through the loader.
+             "stream": dict(device_cache="auto",
+                            device_cache_budget=cache_b // 2),
+             # A forced cache with room for one batch: 4 shards of 32 rows.
+             "shards": dict(device_cache=True, device_cache_budget=shard_b)}
+    counters = (nb_conv3d, nb_conv3d_dw, chunk_byte_histograms)
+    spe = N_TRAIN // 32  # steps an epoch
+    step_mark, end_mark = "chip_smoke.step", "chip_smoke.window_end"
+    rec = {}
+    for mode, kw in modes.items():
+        # end_at: the step after which a profiled run drains the card and
+        # marks its window's end (0: not profiling).
+        steps, lo, end_at = [], [0], [0]
+        make, make_cached, upload = (tt.make_train_step,
+                                     tt.make_cached_train_step,
+                                     tt.Trainer._upload_cache)
+
+        def recording(make_fn, cached):
+            def made(*args, **kws):
+                step = make_fn(*args, **kws)
+
+                def run(state, *batch):
+                    with record_function(step_mark):
+                        state, loss = step(state, *batch)
+                    # Kept on the card, read after the run: no sync. A
+                    # cached step's batch indices (a view of the epoch's
+                    # order), never a streamed batch.
+                    steps.append((lo[0], batch[-1] if cached else None,
+                                  loss))
+                    if len(steps) == end_at[0]:
+                        torch.cuda.synchronize()
+                        with record_function(end_mark):
+                            pass
+                    return state, loss
+                return run
+            return made
+
+        def spy_upload(self, ds_, row_lo=0, row_hi=None):
+            lo[0] = row_lo
+            return upload(self, ds_, row_lo, row_hi)
+
+        def run_train(epochs, tag):
+            with swapped(tt, make_train_step=recording(make, False),
+                         make_cached_train_step=recording(make_cached,
+                                                          True)), \
+                    swapped(tt.Trainer, _upload_cache=spy_upload):
+                return train([train_dir], [val_dir],
+                             os.path.join(WORK, f"{mode}{tag}"),
+                             epochs=epochs, **cfg, **kw)
+
+        walls = []
+        for e in SCALE_WINDOW_EPOCHS:  # the longer run is the counted one
+            steps.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer = run_train(e, e)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        with open(trainer._log_path) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(trainer.session_dir, "config.json")) as f:
+            shards = json.load(f)["device_cache_shards"]
+        uploads = [e["wall_s"] for e in events
+                   if e["event"] == "device_cache_upload"]
+        n_steps = spe * SCALE_WINDOW_EPOCHS[-1]
+        losses = [float(v) for _, _, v in steps]
+        step_s = (walls[1] - walls[0]) / (
+            spe * (SCALE_WINDOW_EPOCHS[1] - SCALE_WINDOW_EPOCHS[0]))
+        want = {"nb_conv3d": 35 * n_steps + 18, "nb_conv3d_dw": 18 * n_steps,
+                "chunk_byte_histograms": 1}
+        print(f"{mode}: device_cache_shards {shards}; train() walls "
+              f"{walls[0]:.4f} / {walls[1]:.4f} s ({SCALE_WINDOW_EPOCHS} "
+              "epochs): "
+              f"{step_s:.4f} s a step, {32 * PATCH ** 3 / step_s:.1f} "
+              f"voxels/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
+              f"uploads {len(uploads)} of {uploads[:4]} s; launches "
+              f"{launches} (expected {want})", flush=True)
+        if not step_s > 0:
+            fail(f"{mode}: window step time {step_s} s")
+        if shards != {"resident": 1, "stream": 0, "shards": 4}[mode]:
+            fail(f"{mode}: the run resolved to {shards} shards")
+        if launches != want:
+            fail(f"{mode}: launches {launches}, expected {want}")
+        if len(losses) != n_steps or not np.all(np.isfinite(losses)) \
+                or not np.mean(losses[-4:]) < losses[0]:
+            fail(f"{mode}: losses not finite or not falling: {losses}")
+        if mode == "shards":
+            rows = [(lo_ + idx.cpu()).tolist() for lo_, idx, _ in steps]
+            plan = [(32 * s + np.random.default_rng(np.random.SeedSequence(
+                [42, epoch, s])).permutation(32)).tolist()
+                for epoch in range(SCALE_WINDOW_EPOCHS[-1])
+                for s in range(4)]
+            if rows != plan:
+                fail("the shard index stream is not SeedSequence([seed, "
+                     "epoch, s])'s")
+            print("shard index stream equals SeedSequence([seed, epoch, "
+                  f"shard])'s over {len(rows)} steps", flush=True)
+        # The steady state on the entry point itself: a third train(), of
+        # SCALE_PROFILE_EPOCHS epochs (validation only after the last step,
+        # at the default val_every), profiled; its window runs from the
+        # host's end of epoch 1's last step to the card's end of the last
+        # step, epoch boundaries (set_epoch, shard uploads) included. The
+        # profiler's own host work (CPU activity) counts as host time. A
+        # trace that fails its check is taken once more.
+        prof_steps = spe * SCALE_PROFILE_EPOCHS
+        for attempt in (1, 2):
+            prof = profiled_window(
+                lambda: run_train(SCALE_PROFILE_EPOCHS, f"prof{attempt}"),
+                steps, end_at, prof_steps, spe, step_mark, end_mark, mode)
+            if prof is not None:
+                break
+        del trainer
+        torch.cuda.empty_cache()
+        rec[mode] = {"step_s": step_s, "window_walls_s": walls,
+                     "peak_bytes": peak, "upload_s": uploads,
+                     "launches": launches, "losses": losses,
+                     "idle_share": None if prof is None
+                     else prof["idle_share"],
+                     "profile": prof}
+    footprint = rec["shards"]["peak_bytes"] - rec["resident"]["peak_bytes"] \
+        + cache_b
+    print(f"steps (s): resident {rec['resident']['step_s']:.4f}, stream "
+          f"{rec['stream']['step_s']:.4f}, shards {rec['shards']['step_s']:.4f}"
+          f" (phase 10's resident window: {resident_step}); idle shares "
+          + ", ".join(f"{m} {r['idle_share']}" for m, r in rec.items())
+          + f"; the shards' cache footprint {footprint / 2 ** 20:.1f} MiB "
+          f"(one shard {shard_b / 2 ** 20:.1f}, the whole cache "
+          f"{cache_b / 2 ** 20:.1f})", flush=True)
+    if not rec["shards"]["peak_bytes"] < rec["resident"]["peak_bytes"] \
+            + shard_b or not footprint < 2 * shard_b:
+        fail(f"peak memory on shards {rec['shards']['peak_bytes']} B: more "
+             f"than one shard at a time (footprint {footprint} B)")
+    rec["loader"] = loader_rates(train_dir)
+    rec.update({"shard_footprint_bytes": footprint, "shard_bytes": shard_b,
+                "cache_bytes": cache_b, "phase10_step_s": resident_step})
+    return rec
+
+
 def print_ptxas(build, name):
     for line in build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
+
+
+def device_intervals(prof, skip=()):
+    """(start, end, name), start and end in µs, of the device-side events (kernels, memcpy, memset)
+    of a finished profile, on the profiler's clock. The ranges that
+    ``record_function`` spans project onto the device timeline (the
+    profiler's step, ``skip``) are annotations, not work: left out."""
+    import torch
+
+    out = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False) \
+                or ev.name.startswith("ProfilerStep") or ev.name in skip:
+            continue
+        out.append((ev.time_range.start, ev.time_range.end, ev.name))
+    return out
+
+
+def union_s(intervals, lo=float("-inf"), hi=float("inf")):
+    """Seconds covered by the union of µs ``intervals`` within [lo, hi]:
+    copies on a side stream that overlap a kernel count once."""
+    covered, reach = 0.0, lo
+    for a, b, *_ in sorted(intervals):
+        b = min(b, hi)
+        if b > reach:
+            covered += b - max(a, reach)
+            reach = b
+    return covered / 1e6
 
 
 def profile_once(run, key=("nb_conv3d_kernel", "nb_stats_reduce"),
@@ -2637,12 +3127,13 @@ def profile_once(run, key=("nb_conv3d_kernel", "nb_stats_reduce"),
     """Device time by kernel over one run of ``run`` (torch.profiler);
     ``key`` (a name fragment, or a tuple of them) names the kernels whose
     time and launch count are reported, each fragment on its own and
-    summed. ``warm`` first makes one discarded run inside the profiler's
-    warm-up step, so that a short run's first launches are traced too."""
+    summed. Busy time is the union of the device intervals; the idle
+    share is its complement over the host's wall. ``warm`` first makes one
+    discarded run inside the profiler's warm-up step, so that a short
+    run's first launches are traced too."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    keys = (key,) if isinstance(key, str) else tuple(key)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)
@@ -2655,35 +3146,44 @@ def profile_once(run, key=("nb_conv3d_kernel", "nb_stats_reduce"),
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # Device-side events only (kernels, memcpy, memset): the CPU-side
-        # aten ops would count their kernels' time a second time.
-        if ev.device_type != torch.autograd.DeviceType.CUDA \
-                or ev.key.startswith("ProfilerStep"):  # the step's own span
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
+    return profile_report(prof, key, wall)
+
+
+def profile_report(prof, key, wall, lo=float("-inf"), hi=float("inf"),
+                   skip=()):
+    """Print and return a profile's device time within [lo, hi] µs (the
+    profiler's clock) beside ``wall``, the window's host seconds: busy
+    time as the union of the device intervals, kernel time by name (the
+    events that start in the window); None where no device time was
+    recorded. ``skip``: see :func:`device_intervals`."""
+    intervals = device_intervals(prof, skip)
+    busy_s = union_s(intervals, lo, hi)
+    by_name = {}
+    for a, b, name in intervals:
+        if lo <= a < hi:
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + b - a, n + 1)
+    rows = sorted(((us, name, n) for name, (us, n) in by_name.items()
+                   if us > 0), reverse=True)
     if not rows:
         print("profile: no device time recorded (not measured)")
         return None
+    keys = (key,) if isinstance(key, str) else tuple(key)
+    sum_s = sum(r[0] for r in rows) / 1e6
     by_key = {k: [sum(r[0] for r in rows if k in r[1]) / 1e6,
                   sum(r[2] for r in rows if k in r[1])] for k in keys}
     conv_s = sum(v[0] for v in by_key.values())
     key_launches = sum(v[1] for v in by_key.values())
-    print(f"profile: wall {wall:.4f} s, device busy {busy_s:.4f} s "
-          f"(idle share {max(0.0, 1 - busy_s / wall):.3f}), of which "
-          + " + ".join(f"{k} kernels {v[0]:.4f} s in {v[1]} launches"
-                       for k, v in by_key.items())
+    idle = 1 - busy_s / wall
+    print(f"profile: wall {wall:.4f} s, device busy {busy_s:.4f} s (union; "
+          f"{sum_s:.4f} s summed by kernel; idle share {idle:.3f}), of "
+          "which " + " + ".join(f"{k} kernels {v[0]:.4f} s in {v[1]} "
+                                 "launches" for k, v in by_key.items())
           + (f" = {conv_s:.4f} s" if len(keys) > 1 else ""))
     for dev_us, name, count in rows[:10]:
         print(f"  {dev_us / 1e3:10.3f} ms  x{count:<5d} {name[:90]}")
-    return {"wall_s": wall, "device_busy_s": busy_s, "conv_s": conv_s,
+    return {"wall_s": wall, "device_busy_s": busy_s, "device_sum_s": sum_s,
+            "idle_share": idle, "conv_s": conv_s,
             "key_launches": key_launches, "by_key": by_key,
             "top": [[name, dev_us / 1e3, count]
                     for dev_us, name, count in rows[:15]]}
@@ -2782,7 +3282,7 @@ def main():
     phase("main path: restore + phantom")
     model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
                                         device="cuda")
-    clean, _ = neurite_phantom((BLOCK,) * 3, n_tubes=24, seed=0)
+    clean, clean_fg = neurite_phantom((BLOCK,) * 3, n_tubes=24, seed=0)
     img = noisy_observation(clean, seed=1)
     if (patch, batch) != plan_tiling(img.shape, OVERLAP):
         fail(f"the block's tiling {plan_tiling(img.shape, OVERLAP)} is not "
@@ -3009,6 +3509,17 @@ def main():
     record["n2v"] = n2v_path()
     shutil.rmtree(WORK, ignore_errors=True)
 
+    phase(f"live teachers: precompute(source='live') on two {LIVE_SIDE}^3 "
+          "brains")
+    record["live"] = live_path(img, clean, clean_fg)
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    phase("production-scale training: resident, streamed and sharded")
+    record["scale"] = scale_path(train_dir, val_dir,
+                                 record["train"]["step_s"])
+    shutil.rmtree(WORK, ignore_errors=True)
+    shutil.rmtree(CACHES, ignore_errors=True)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
         json.dump(record, f, indent=1, default=float)
@@ -3132,8 +3643,12 @@ def main():
     # imported biased (c) and transposed-conv (d) models. Phase 21: rows
     # 1-3 and 6 in the counted train_n2v run (its steps and the held-out
     # predict and summary).
+    # Phase 22: the fused matcher's launches in the live precompute() run.
+    # Phase 23: rows 1-3 and 6 in the counted (longer) train() run of the
+    # streamed and of the sharded path.
     demo = record["demo"]["launches"]
     n2v = record["n2v"]["launches"]
+    scale = record["scale"]
     imported = sum(record["reference"]["models"][m]["launches"]
                    for m in "cd")
     for k in kernels:
@@ -3144,6 +3659,11 @@ def main():
             k["demo_launches"] = demo[key]
         if key in n2v:
             k["n2v_launches"] = n2v[key]
+        if key == "match_topk":
+            k["live_launches"] = record["live"]["launches"]
+        if key in scale["stream"]["launches"] and k["path"] == "training":
+            k["stream_launches"] = scale["stream"]["launches"][key]
+            k["shard_launches"] = scale["shards"]["launches"][key]
         if k["name"] in ("nb_conv3d", "nb_conv3d_dw"):
             d = record["n2v"]["conv" if k["name"] == "nb_conv3d" else "dw"]
             k["n2v_step"] = per_step(d["recs"], d["counts"])

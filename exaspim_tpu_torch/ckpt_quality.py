@@ -22,24 +22,32 @@ compression figure the card's machine can give.
 
     python -m exaspim_tpu_torch.ckpt_quality CKPT [CKPT ...] [--block 256]
         [--family a|b] [--seed-clean 0] [--seed-noise 1]
-        [--volume-offset none|auto] [--device cuda|cpu]
+        [--volume-offset none|auto] [--device cuda|cpu] [--save-dir DIR]
+    python -m exaspim_tpu_torch.ckpt_quality --saved DIR/CKPT.npz ...
 
 It runs on the card unless ``--device cpu`` is given, in bf16 there as the
 script runs it, and in f32 on the CPU, where the plain conv runs
 (:func:`quality_records` also takes the dtype and the patch size).
+``--save-dir`` also writes each checkpoint's denoised volume to
+``DIR/<checkpoint file name>.npz`` (``np.savez_compressed``, key
+``denoised``); ``--saved`` scores such files instead of checkpoints, with
+the same records. So a machine without an exact codec can denoise (in f32
+on its CPU) and a machine with one can take the exact ratio of the same
+volumes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 import torch
 
 __all__ = ["main", "quality_records", "score", "proxy_ratios",
-           "bench_volumes"]
+           "bench_volumes", "saved_records"]
 
 CLEVEL = 6
 
@@ -117,11 +125,66 @@ def _volume_transform(transform, img, seed_clean, seed_noise):
     return with_offset(transform, estimate_offset(img) - est_train)
 
 
+def _noisy_record(block, family, seed_clean, seed_noise, device):
+    """``(clean, noisy volume, codec, the noisy record)``."""
+    clean, img = bench_volumes(block, family, seed_clean, seed_noise)
+    codec, why = exact_codec()
+    if codec is None:
+        print(f"cratio: unavailable ({why})", file=sys.stderr, flush=True)
+    noisy = score(img, clean, codec, device)
+    return clean, img, codec, {
+        "family": family,
+        "cratio_noisy": noisy["cratio"],
+        "psnr_noisy_db": round(noisy["psnr_db"], 2),
+        "ssim_noisy": round(noisy["ssim"], 4),
+        "_cratio": noisy["cratio"],
+    }
+
+
+def _denoised_record(name, out, img, clean, codec, noisy, device):
+    """The per-checkpoint record of a denoised volume ``out``; sets the
+    noisy record's proxy."""
+    s = score(out, clean, codec, device)
+    p_noisy, p_out = proxy_ratios([img, out], device)
+    noisy["cratio_proxy_noisy"] = round(p_noisy, 4)
+    return {
+        "ckpt": name,
+        "cratio_denoised": s["cratio"],
+        "cratio_gain": (None if codec is None
+                        else round(s["cratio"] / noisy["_cratio"], 3)),
+        "psnr_denoised_db": round(s["psnr_db"], 2),
+        "ssim_denoised": round(s["ssim"], 4),
+        "cratio_proxy_denoised": round(p_out, 4),
+        "cratio_proxy_gain": round(p_out / p_noisy, 4),
+    }
+
+
+def saved_records(paths, block=256, family="a", seed_clean=0, seed_noise=1,
+                  device="cuda"):
+    """The records of :func:`quality_records` for denoised volumes saved
+    by ``--save-dir`` (``.npz``, key ``denoised``) instead of
+    checkpoints; ``ckpt`` names the file."""
+    clean, img, codec, noisy = _noisy_record(block, family, seed_clean,
+                                             seed_noise, device)
+    records = [noisy]
+    for path in paths:
+        with np.load(path) as z:
+            out = z["denoised"]
+        if out.shape != img.shape or out.dtype != np.uint16:
+            raise ValueError(f"{path}: {out.shape} {out.dtype}, expected "
+                             f"{img.shape} uint16")
+        records.append(_denoised_record(path, out, img, clean, codec, noisy,
+                                        device))
+    noisy.pop("_cratio")
+    return records
+
+
 def quality_records(ckpts, block=256, family="a", seed_clean=0, seed_noise=1,
                     volume_offset="none", device="cuda", dtype=None,
-                    patch_size="auto"):
+                    patch_size="auto", save_dir=None):
     """The records the script prints (see the module docstring), as dicts:
-    the noisy volume's first, then one per checkpoint path."""
+    the noisy volume's first, then one per checkpoint path. ``save_dir``:
+    write each denoised volume there (see the module docstring)."""
     from exaspim_tpu_torch.inference import predict
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
@@ -130,17 +193,9 @@ def quality_records(ckpts, block=256, family="a", seed_clean=0, seed_noise=1,
                          f"{volume_offset!r}")
     if dtype is None:
         dtype = torch.bfloat16 if device != "cpu" else torch.float32
-    clean, img = bench_volumes(block, family, seed_clean, seed_noise)
-    codec, why = exact_codec()
-    if codec is None:
-        print(f"cratio: unavailable ({why})", file=sys.stderr, flush=True)
-    noisy = score(img, clean, codec, device)
-    records = [{
-        "family": family,
-        "cratio_noisy": noisy["cratio"],
-        "psnr_noisy_db": round(noisy["psnr_db"], 2),
-        "ssim_noisy": round(noisy["ssim"], 4),
-    }]
+    clean, img, codec, noisy = _noisy_record(block, family, seed_clean,
+                                             seed_noise, device)
+    records = [noisy]
     for path in ckpts:
         model, transform = restore_pipeline(path, dtype=dtype, device=device)
         if volume_offset == "auto":
@@ -150,19 +205,13 @@ def quality_records(ckpts, block=256, family="a", seed_clean=0, seed_noise=1,
             out = predict(img, model, transform, patch_size=patch_size,
                           device=device)
         del model
-        s = score(out, clean, codec, device)
-        p_noisy, p_out = proxy_ratios([img, out], device)
-        records[0]["cratio_proxy_noisy"] = round(p_noisy, 4)
-        records.append({
-            "ckpt": path,
-            "cratio_denoised": s["cratio"],
-            "cratio_gain": (None if codec is None
-                            else round(s["cratio"] / noisy["cratio"], 3)),
-            "psnr_denoised_db": round(s["psnr_db"], 2),
-            "ssim_denoised": round(s["ssim"], 4),
-            "cratio_proxy_denoised": round(p_out, 4),
-            "cratio_proxy_gain": round(p_out / p_noisy, 4),
-        })
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+            np.savez_compressed(os.path.join(
+                save_dir, os.path.basename(path) + ".npz"), denoised=out)
+        records.append(_denoised_record(path, out, img, clean, codec, noisy,
+                                        device))
+    noisy.pop("_cratio")
     return records
 
 
@@ -183,14 +232,25 @@ def main(argv=None):
                         "background and the estimate on the family the "
                         "transform was calibrated for")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--save-dir",
+                   help="also write each denoised volume to "
+                        "DIR/<checkpoint file name>.npz")
+    p.add_argument("--saved", action="store_true",
+                   help="the arguments are denoised volumes written by "
+                        "--save-dir, not checkpoints")
     args = p.parse_args(argv)
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to score on "
                            "the CPU")
-    records = quality_records(
-        args.ckpts, block=args.block, family=args.family,
-        seed_clean=args.seed_clean, seed_noise=args.seed_noise,
-        volume_offset=args.volume_offset, device=args.device)
+    common = dict(block=args.block, family=args.family,
+                  seed_clean=args.seed_clean, seed_noise=args.seed_noise,
+                  device=args.device)
+    if args.saved:
+        records = saved_records(args.ckpts, **common)
+    else:
+        records = quality_records(
+            args.ckpts, volume_offset=args.volume_offset,
+            save_dir=args.save_dir, **common)
     for rec in records:
         print(json.dumps(rec), flush=True)
     return records

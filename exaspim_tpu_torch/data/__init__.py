@@ -1,6 +1,7 @@
 """Data layer: the patch-cache contract (raw/teacher/fg ``.npy`` +
 ``transform.json``, the JAX package's files), the data loader and the
-synthetic phantoms."""
+synthetic phantoms. Live sampling over whole-brain volumes lives in
+:mod:`exaspim_tpu_torch.data.live`."""
 
 from exaspim_tpu_torch.data.cache import (
     CACHE_FILES,
@@ -14,6 +15,8 @@ from exaspim_tpu_torch.data.loader import (
     DataLoader,
     make_count_train_collate,
     make_count_val_collate,
+    make_train_collate,
+    make_val_collate,
     prefetch_to_device,
 )
 from exaspim_tpu_torch.data.synthetic import (
@@ -34,6 +37,8 @@ __all__ = [
     "make_synthetic_cache",
     "make_count_train_collate",
     "make_count_val_collate",
+    "make_train_collate",
+    "make_val_collate",
     "neurite_phantom",
     "noisy_observation",
     "prefetch_to_device",

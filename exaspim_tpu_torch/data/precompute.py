@@ -2,19 +2,24 @@
 
 Counterpart of ``scripts/precompute.py``: writes ``raw.npy`` /
 ``teacher.npy`` / ``fg.npy`` memmaps plus ``transform.json`` and a
-full-provenance ``config.json``. Patches are seeded per index
-(``SeedSequence([seed + stream, index])``), and the teachers are computed
-deterministically, so the output does not depend on scheduling.
+full-provenance ``config.json``. Patches are seeded per index, and the
+teachers are computed deterministically, so the output does not depend on
+scheduling.
 
 Usage:
     python -m exaspim_tpu_torch.data.precompute --split train \\
-        --out /cache/train --n 30000
+        --out /cache/train --source live --config brains.json --n 30000
     python -m exaspim_tpu_torch.data.precompute --split val --n 500 …
 
 ``--source synthetic`` (the default) runs hermetically on procedural
-phantoms; teachers are BM4D (``exaspim_tpu_torch.ops.bm4d``) at
-``--sigma-bm4d``, computed on ``--device`` (the card by default). The live
-cloud source is not ported yet.
+phantoms (patch ``i`` from ``SeedSequence([seed + stream, i])``, teachers
+in batches of :data:`TEACHER_BATCH`). ``--source live`` samples
+foreground-biased patches from the whole-brain volumes of a brain-spec
+JSON (``--config``; see :func:`exaspim_tpu_torch.data.live.init_datasets`),
+masks them with segmentations ∪ SWC skeletons and denoises each one; patch
+``i`` is drawn from ``SeedSequence([seed, stream, i])``. Teachers are BM4D
+(``exaspim_tpu_torch.ops.bm4d``) at ``--sigma-bm4d``, computed on
+``--device`` (the card by default).
 """
 
 from __future__ import annotations
@@ -37,8 +42,13 @@ DEFAULT_TRANSFORM = {
     "kind": "asinh", "params": {"offset": 0.0, "scale": 60.0},
 }
 
-#: patches denoised between two writes to the cache
+#: synthetic patches denoised between two writes to the cache
 TEACHER_BATCH = 8
+
+
+def _seed_task(seed, stream, index):
+    """The generator seed of live patch ``index`` of a split."""
+    return np.random.SeedSequence([seed, stream, index])
 
 
 def precompute(out_dir, split="train", source="synthetic", config=None,
@@ -55,13 +65,10 @@ def precompute(out_dir, split="train", source="synthetic", config=None,
             "transform cfg must be frozen (no 'calibrate') for precompute"
         )
     build_transform(transform_cfg)  # validate
-    if source != "synthetic":
-        raise NotImplementedError(
-            f"source {source!r}: sampling live cloud volumes comes with a "
-            "later slice of the port; use source='synthetic'")
-
-    from exaspim_tpu_torch.data.synthetic import SyntheticPatchDataset
-    from exaspim_tpu_torch.ops.bm4d import bm4d_batch
+    if source not in ("synthetic", "live"):
+        raise ValueError(f"unknown source {source!r}")
+    if source == "live" and config is None:
+        raise ValueError("source='live' needs a brain-spec JSON (config=)")
 
     stream = SEED_STREAMS[split]
     run_config = {
@@ -77,6 +84,14 @@ def precompute(out_dir, split="train", source="synthetic", config=None,
     raw, teacher, fg = allocate_cache(
         out_dir, n, patch, transform_cfg, config=run_config
     )
+    if source == "live":
+        return _precompute_live(out_dir, raw, teacher, fg, split, config, n,
+                                patch, sigma_bm4d, seed, stream,
+                                check_incoherence, device)
+
+    from exaspim_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from exaspim_tpu_torch.ops.bm4d import bm4d_batch
+
     ds = SyntheticPatchDataset(
         n=n, patch_shape=patch, seed=seed + stream, sigma_bm4d=sigma_bm4d,
         family=family,
@@ -96,6 +111,31 @@ def precompute(out_dir, split="train", source="synthetic", config=None,
         if hi % 48 < TEACHER_BATCH or hi == n:
             rate = hi / (time.time() - t0)
             print(f"[{split}] {hi}/{n} patches ({rate:.2f}/s)", flush=True)
+    raw.flush(), teacher.flush(), fg.flush()
+    print(f"cache complete: {out_dir}")
+    return out_dir
+
+
+def _precompute_live(out_dir, raw, teacher, fg, split, config, n, patch,
+                     sigma_bm4d, seed, stream, check_incoherence, device):
+    """Fill the cache from the brains of ``config``: patch ``i`` reseeds
+    the sampler with :func:`_seed_task` and draws one example (raw counts,
+    BM4D teacher on ``device``, annotation mask)."""
+    from exaspim_tpu_torch.data.live import init_datasets
+    from exaspim_tpu_torch.utils.util import read_json
+
+    train_ds, _, _ = init_datasets(
+        read_json(config), patch_shape=patch, sigma_bm4d=sigma_bm4d,
+        check_incoherence=check_incoherence, n_val_examples=0, seed=seed,
+        device=device,
+    )
+    t0 = time.time()
+    for i in range(n):
+        train_ds.reseed(_seed_task(seed, stream, i))
+        raw[i], teacher[i], fg[i], _, _ = train_ds.sample_example()
+        if (i + 1) % 50 == 0 or i + 1 == n:
+            rate = (i + 1) / (time.time() - t0)
+            print(f"[{split}] {i + 1}/{n} patches ({rate:.2f}/s)", flush=True)
     raw.flush(), teacher.flush(), fg.flush()
     print(f"cache complete: {out_dir}")
     return out_dir

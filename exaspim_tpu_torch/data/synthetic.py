@@ -122,6 +122,12 @@ class SyntheticPatchDataset:
     def __len__(self):
         return self.n
 
+    @property
+    def items_run_torch(self):
+        """Whether an item runs torch ops (the BM4D teacher): such a
+        dataset is fetched in the loader's own process."""
+        return bool(self.use_bm4d_teacher)
+
     def raw_and_fg(self, index):
         """Raw counts + foreground mask only (no teacher)."""
         ss = np.random.SeedSequence([self.seed, index])

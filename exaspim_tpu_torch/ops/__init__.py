@@ -15,8 +15,13 @@ from exaspim_tpu_torch.ops.metrics import (
     evaluate_example,
     false_bright_rate,
     foreground_background_mae,
+    highfreq_energy_fraction,
+    local_autocorr,
     make_foreground_mask,
+    make_segmentation_mask,
+    make_skeleton_mask,
     mip_max_error,
+    patch_has_incoherent_segment,
 )
 from exaspim_tpu_torch.ops.ssim import compute_lmax, compute_mae, psnr, ssim3d
 
@@ -32,8 +37,13 @@ __all__ = [
     "false_bright_rate",
     "foreground_background_mae",
     "gaussian_filter",
+    "highfreq_energy_fraction",
+    "local_autocorr",
     "make_foreground_mask",
+    "make_segmentation_mask",
+    "make_skeleton_mask",
     "mip_max_error",
+    "patch_has_incoherent_segment",
     "psnr",
     "separable_filter",
     "ssim3d",

@@ -4,12 +4,18 @@ Each ``csrc/*.cu`` file is compiled on first use into its own shared
 library with a plain C interface, for Hopper (``sm_90a``), into
 ``exaspim_tpu_torch/build/`` (listed in ``.gitignore``). The library name
 carries a hash of the source, of the local headers it includes and of the
-flags, so an edited kernel is rebuilt and a stale one is never loaded. Nothing here runs at import time.
+flags, so an edited kernel is rebuilt and a stale one is never loaded.
+Builds are serialised across threads and across processes (an exclusive
+``flock`` on the build directory around compile-and-rename), so loader
+workers or two runs of one checkout never race nvcc over a library.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -74,13 +80,26 @@ def _paths(name):
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold ``_lock`` and an exclusive ``flock`` on ``BUILD_DIR``: one
+    build at a time, within this process and across processes."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _lock:
+        fd = os.open(BUILD_DIR, os.O_RDONLY)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)  # releases the flock
+
+
 def build_all(names=KERNELS):
     """Compile every ``csrc/<name>.cu`` of ``names`` (default: all seven)
     not built yet, one nvcc process per source, all started together; then
     load them. Returns the seconds each build took (0.0 for a library
     already built)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with _lock:
+    with _build_lock():
         jobs = {}
         for name in names:
             src, lib = _paths(name)

@@ -1,12 +1,14 @@
-"""Count-space validation metrics, host side (numpy), the foreground mask
-and the checkpoint score.
+"""Count-space validation metrics, host side (numpy), the masks, the
+coherence artifact gate and the checkpoint score.
 
-Copies of the validation part of ``exaspim_tpu/ops/metrics.py``
-(``:23-239``): the robust brightness threshold, the foreground mask,
-foreground/background MAE, MIP max error, false-bright rate, the
-per-example metric dict and the weighted checkpoint score. The Trainer
-scores checkpoints with :func:`checkpoint_score`; :func:`evaluate_example`
-is the oracle that the device metrics
+Copies of ``exaspim_tpu/ops/metrics.py``: the robust brightness threshold,
+the foreground mask, the live sampler's masks and gate (lag
+autocorrelation, high-frequency energy fraction, segmentation and
+skeleton masks, the incoherent-segment test; numpy and
+``scipy.ndimage``, as there), foreground/background MAE, MIP max error,
+false-bright rate, the per-example metric dict and the weighted checkpoint
+score. The Trainer scores checkpoints with :func:`checkpoint_score`;
+:func:`evaluate_example` is the oracle that the device metrics
 (:mod:`exaspim_tpu_torch.ops.metrics_device`) are held to.
 """
 
@@ -14,12 +16,18 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy import ndimage
 
 __all__ = [
     "DEFAULT_CHECKPOINT_WEIGHTS",
     "robust_brightness_threshold",
     "tensor_brightness_threshold",
     "make_foreground_mask",
+    "local_autocorr",
+    "highfreq_energy_fraction",
+    "make_segmentation_mask",
+    "patch_has_incoherent_segment",
+    "make_skeleton_mask",
     "foreground_background_mae",
     "mip_max_error",
     "false_bright_rate",
@@ -85,6 +93,117 @@ def make_foreground_mask(raw, k=6.0, dilate=1):
     if isinstance(raw, torch.Tensor):
         return mask
     return mask.numpy()
+
+
+def _pearson(x, y):
+    """Pearson r of two 1-D samples; NaN when undefined (n<2 or flat)."""
+    if x.size < 2:
+        return np.nan
+    xc = x - x.mean()
+    yc = y - y.mean()
+    denom = np.sqrt((xc @ xc) * (yc @ yc))
+    if denom < 1e-6 * x.size:
+        return np.nan
+    return float((xc @ yc) / denom)
+
+
+def local_autocorr(raw, mask, lag=2):
+    """Mean lag-``lag`` Pearson autocorrelation of masked voxels, per axis.
+
+    PSF-blurred neurites stay correlated over 2-3 voxels; blocky artifacts
+    decorrelate by lag 2. Returns 1.0 (maximally coherent) when no axis
+    yields a defined correlation, so no segment is rejected on an
+    undefined score.
+    """
+    vol = np.asarray(raw, dtype=np.float64)
+    keep = np.asarray(mask, dtype=bool)
+    per_axis = []
+    for ax in range(vol.ndim):
+        v = np.moveaxis(vol, ax, 0)
+        k = np.moveaxis(keep, ax, 0)
+        both = k[:-lag] & k[lag:]
+        per_axis.append(_pearson(v[:-lag][both], v[lag:][both]))
+    if not per_axis or np.all(np.isnan(per_axis)):
+        return 1.0
+    return float(np.nanmean(per_axis))
+
+
+def highfreq_energy_fraction(raw, mask, smooth=None, smooth_sigma=1.0):
+    """Fraction of masked variance above a Gaussian low-pass (``smooth``,
+    or the raw volume filtered at ``smooth_sigma``). Salt-and-pepper
+    artifacts read ~0.6-0.8, smooth neurites ~0.0-0.25; 0.0 when the
+    masked variance is degenerate."""
+    vol = np.asarray(raw, dtype=np.float64)
+    sel = np.asarray(mask, dtype=bool)
+    low = ndimage.gaussian_filter(vol, sigma=smooth_sigma) \
+        if smooth is None else smooth
+    total = np.var(vol[sel])
+    if not np.isfinite(total) or total < 1e-12:
+        return 0.0
+    return float(np.var(vol[sel] - np.asarray(low)[sel]) / total)
+
+
+def make_segmentation_mask(labels, dilate=0):
+    """Foreground = labeled neurites only (labels > 0); dilation is
+    opt-in."""
+    mask = np.asarray(labels) > 0
+    if dilate > 0:
+        mask = ndimage.binary_dilation(mask, iterations=dilate)
+    return mask
+
+
+def patch_has_incoherent_segment(
+    labels,
+    raw,
+    min_autocorr=0.4,
+    max_highfreq_frac=0.35,
+    min_segment_voxels=50,
+    smooth_sigma=1.0,
+    coherence_lag=2,
+):
+    """True if any scorable segment is a spatially incoherent artifact.
+
+    A segment is rejected only when it fails both tests — autocorrelation
+    at ``coherence_lag`` below ``min_autocorr`` and high-frequency energy
+    fraction above ``max_highfreq_frac`` — so a thin but smooth neurite is
+    kept. Segments under ``min_segment_voxels`` are ignored. The artifact
+    corrupts the raw input itself, so callers resample the whole patch.
+    """
+    labels = np.asarray(labels)
+    fg = labels > 0
+    if not fg.any():
+        return False
+    raw = np.asarray(raw, dtype=np.float64)
+    smooth = ndimage.gaussian_filter(raw, sigma=smooth_sigma)
+    for lid in np.unique(labels[fg]):
+        if lid == 0:
+            continue
+        seg = labels == lid
+        if seg.sum() < min_segment_voxels:
+            continue
+        if local_autocorr(raw, seg, lag=coherence_lag) >= min_autocorr:
+            continue
+        if highfreq_energy_fraction(raw, seg, smooth=smooth) \
+                > max_highfreq_frac:
+            return True
+    return False
+
+
+def make_skeleton_mask(points, start, patch_shape, dilate=2):
+    """Traced skeleton nodes rasterized in a patch, dilated to neurite
+    radius. ``points`` are (N, 3) voxel coordinates in the brain volume,
+    ``start`` the patch's lower corner; raw intensity is never read."""
+    start = np.asarray(start)
+    stop = start + np.asarray(patch_shape)
+    pts = np.asarray(points).reshape(-1, 3)
+    inside = np.all((pts >= start) & (pts < stop), axis=1)
+    mask = np.zeros(tuple(patch_shape), dtype=bool)
+    local = (pts[inside] - start).astype(int)
+    if local.size:
+        mask[local[:, 0], local[:, 1], local[:, 2]] = True
+    if dilate > 0:
+        mask = ndimage.binary_dilation(mask, iterations=dilate)
+    return mask
 
 
 def foreground_background_mae(pred, ref, fg_mask):

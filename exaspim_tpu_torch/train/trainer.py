@@ -9,11 +9,14 @@ cratios of the leading examples on the host, the weighted checkpoint score
 ``BM4DNet-<date>-<step>-<score>.ckpt`` in the JAX package's format, a
 ``config.json`` run record and a ``log.jsonl`` of events.
 
-Two training loops, as in the reference: the whole uint16 cache resident
-on the card with the batch gather inside the step (``device_cache``), or
-batches streamed through the loader. The loss is read to the host only
-when a step is logged (every ``log_every`` steps), so other steps add no
-host sync.
+Three training loops, as in the reference: the whole uint16 cache
+resident on the card with the batch gather inside the step
+(``device_cache``); a forced ``device_cache=True`` on a cache above
+``device_cache_budget`` rotating contiguous shards of whole batches through
+device memory (each shard freed before the next is uploaded, shuffled by
+``SeedSequence([seed, epoch, shard])``); or batches streamed through the
+loader. The loss is read to the host only when a step is logged (every
+``log_every`` steps), so other steps add no host sync.
 
 Every ``full_state_every``-th validation also writes the full train
 state (``latest_state.ckpt``), from which ``run(resume_state=)`` continues
@@ -21,18 +24,24 @@ a run: params, AdamW moments and the step, in the JAX package's format,
 so either package resumes the other's. ``augment=True`` orients each
 batch of the card-resident cache by the reference's per-step draw.
 
-Later slices of the port: rotating cache shards through device memory
-(a cache larger than ``device_cache_budget``), the data-parallel (mesh)
-step, TensorBoard scalars and MIP images. The exact cratio needs libblosc
-or ``zstandard``; without either, pass ``exact_cratio_examples=0`` and
-``val_cratio`` is 0.0, as the reference reports it when no example was
-measured.
+Validation writes max-projection PNGs of the first ``keep_mips``
+predictions (``session_dir/mips``), and with ``tensorboard`` the scalars
+``train_loss``, ``voxels_per_sec`` and every validation metric to
+``session_dir/tb`` (``tensorboardX``; where it is missing, the scalars are
+skipped with one message on stderr). ``val_device_metrics=False`` scores
+each example on the host with
+:func:`~exaspim_tpu_torch.ops.metrics.evaluate_example` instead (the
+oracle path). The data-parallel (mesh) step comes with the multi-GPU
+slice. The exact cratio needs libblosc or ``zstandard``; without either,
+pass ``exact_cratio_examples=0`` and ``val_cratio`` is 0.0, as the
+reference reports it when no example was measured.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from datetime import datetime
 
@@ -52,6 +61,7 @@ from exaspim_tpu_torch.data.loader import (
 from exaspim_tpu_torch.ops.metrics import (
     DEFAULT_CHECKPOINT_WEIGHTS,
     checkpoint_score,
+    evaluate_example,
 )
 from exaspim_tpu_torch.ops.metrics_device import evaluate_batch
 from exaspim_tpu_torch.train.checkpoint import (
@@ -89,7 +99,8 @@ class Trainer:
                  warmup_steps=0, max_val_examples=None,
                  device_cache="auto", device_cache_budget=8 << 30,
                  exact_cratio_examples=16, augment=False,
-                 full_state_every=1, log_every=50, device="cuda"):
+                 full_state_every=1, log_every=50, keep_mips=10,
+                 tensorboard=True, val_device_metrics=True, device="cuda"):
         self.model = model
         self.transform = transform
         self.lr = lr
@@ -113,7 +124,8 @@ class Trainer:
         self.max_val_examples = max_val_examples
         #: "auto": train from a card-resident cache when the dataset
         #: exposes its arrays, fits ``device_cache_budget`` and divides
-        #: into whole batches; True forces it; False streams batches.
+        #: into whole batches; True forces it (rotating shards when the
+        #: cache exceeds the budget); False streams batches.
         self.device_cache = device_cache
         self.device_cache_budget = int(device_cache_budget)
         #: one of the 48 cube orientations per step, drawn from (seed,
@@ -123,13 +135,29 @@ class Trainer:
         self.full_state_every = max(1, int(full_state_every))
         self._n_validations = 0
         self.log_every = int(log_every)
+        self.keep_mips = int(keep_mips)
+        #: True: each validation batch is scored on the device (metrics +
+        #: proxy); False: every example on the host (the oracle path).
+        self.val_device_metrics = bool(val_device_metrics)
         self.device = torch.device(device)
 
         stamp = datetime.now().strftime("%Y%m%d_%H%M")
         self.output_dir = os.fspath(output_dir)
         self.session_dir = os.path.join(self.output_dir, f"session-{stamp}")
         self.ckpt_dir = os.path.join(self.session_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.mip_dir = os.path.join(self.session_dir, "mips")
+        for d in (self.ckpt_dir, self.mip_dir):
+            os.makedirs(d, exist_ok=True)
+        self._writer = None
+        if tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError as exc:
+                print(f"TensorBoard scalars skipped: {exc}", file=sys.stderr,
+                      flush=True)
+            else:
+                self._writer = SummaryWriter(
+                    os.path.join(self.session_dir, "tb"))
         self._log_path = os.path.join(self.session_dir, "log.jsonl")
         self._pretrained_params = None
         self._pretrained_transform_cfg = None
@@ -203,69 +231,95 @@ class Trainer:
         foreground-preserving target rule is on."""
         return self.preserve_foreground or self.fg_weight != 0
 
-    def _cache_nbytes(self, ds):
-        """Device bytes of the resident cache (fg bit-packed when needed,
-        absent when not)."""
+    def _cache_nbytes(self, ds, resident=True):
+        """Bytes of the cache on the device (``resident``: fg bit-packed
+        when needed, absent when not) or on the host."""
         raw_b = sum(a.nbytes for a in ds._raw)
         teach_b = sum(a.nbytes for a in ds._teacher)
-        fg_b = -(-sum(a.nbytes for a in ds._fg) // 8) \
-            if self._fg_needed() else 0
+        fg_b = sum(a.nbytes for a in ds._fg)
+        if resident:
+            fg_b = -(-fg_b // 8) if self._fg_needed() else 0
         return raw_b + teach_b + fg_b
 
     def _resolve_device_cache(self, train_ds):
-        """True to train from a card-resident cache, with the reference's
-        gating: ``"auto"`` engages only when the dataset exposes its
-        arrays, holds at least one batch, fits the budget and divides into
-        whole batches; ``True`` raises where it cannot be honoured."""
+        """How this run trains: 0 streams through the loader, 1 keeps the
+        whole cache on the device, S > 1 rotates S contiguous shards.
+
+        ``"auto"`` engages only full residency, when the dataset exposes
+        its arrays, holds at least one batch, fits the budget and divides
+        into whole batches, and streams otherwise. ``True`` raises where
+        it cannot be honoured and shards a cache above the budget (each
+        shard a whole number of batches; the budget must hold one)."""
         forced = self.device_cache is True
         if not self.device_cache:
-            return False
+            return 0
         if not all(hasattr(train_ds, f) for f in ("_raw", "_teacher", "_fg")):
             if forced:
                 raise ValueError(
                     "device_cache=True requires a cached dataset with "
-                    "in-memory (_raw, _teacher, _fg) arrays")
-            return False
+                    "in-memory (_raw, _teacher, _fg) arrays; a live/"
+                    "streaming dataset cannot be device-resident")
+            return 0
         n = len(train_ds)
         if n < self.batch_size:
             if forced:
                 raise ValueError(
                     f"device_cache=True but the dataset ({n} patches) is "
                     f"smaller than batch_size ({self.batch_size})")
-            return False
-        fits = self._cache_nbytes(train_ds) <= self.device_cache_budget
+            return 0
+        nbytes = self._cache_nbytes(train_ds)
+        fits = nbytes <= self.device_cache_budget
         if self.device_cache == "auto":
-            return fits and n % self.batch_size == 0
-        if not fits:
-            raise NotImplementedError(
-                "the cache exceeds device_cache_budget; rotating shards "
-                "through device memory comes with a later slice of the port")
-        return True
+            return 1 if fits and n % self.batch_size == 0 else 0
+        if fits:
+            return 1
+        row_b = nbytes / n
+        batches_per_shard = int(self.device_cache_budget // row_b) \
+            // self.batch_size
+        if batches_per_shard < 1:
+            raise ValueError(
+                f"device_cache=True but device_cache_budget "
+                f"({self.device_cache_budget} B) cannot hold even one "
+                f"batch ({int(row_b) * self.batch_size} B)")
+        return -(-(n // self.batch_size) // batches_per_shard)
 
     # Host staging granularity of the cache upload.
     _UPLOAD_CHUNK_BYTES = 256 << 20
 
-    def _upload_cache(self, ds):
-        """Copy the whole (raw, teacher[, fg]) cache to the device, chunk
-        by chunk from the memmaps: uint16 as int16 bits, fg bit-packed
-        when the loss needs it and skipped when not."""
+    @staticmethod
+    def _row_slices(parts, lo, hi):
+        """Contiguous host slices covering global rows [lo, hi) across a
+        multi-dir cache's list of memmaps."""
+        off = 0
+        for p in parts:
+            s, e = max(lo - off, 0), min(hi - off, p.shape[0])
+            if s < e:
+                yield p[s:e]
+            off += p.shape[0]
+
+    def _upload_cache(self, ds, lo=0, hi=None):
+        """Copy cache rows [lo, hi) of (raw, teacher[, fg]) to the device,
+        chunk by chunk from the memmaps into one buffer each: uint16 as
+        int16 bits, fg bit-packed when the loss needs it and skipped when
+        not. On the card the logged ``wall_s`` is the copy's own: the
+        caller has drained the stream, and the copy is waited for."""
+        hi = len(ds) if hi is None else hi
         t0 = time.time()
-        n = len(ds)
 
         def up(parts, host_transform=None):
             probe = parts[0][:1]
             if host_transform is not None:
                 probe = host_transform(probe)
             probe = to_tensor(probe, "cpu")
-            buf = torch.empty((n, *probe.shape[1:]), dtype=probe.dtype,
+            buf = torch.empty((hi - lo, *probe.shape[1:]), dtype=probe.dtype,
                               device=self.device)
             row_bytes = max(1, int(np.prod(parts[0].shape[1:]))
                             * parts[0].dtype.itemsize)
             rows = max(1, self._UPLOAD_CHUNK_BYTES // row_bytes)
             off = 0
-            for p in parts:
-                for lo in range(0, p.shape[0], rows):
-                    chunk = np.ascontiguousarray(p[lo:lo + rows])
+            for p in self._row_slices(parts, lo, hi):
+                for clo in range(0, p.shape[0], rows):
+                    chunk = np.ascontiguousarray(p[clo:clo + rows])
                     if host_transform is not None:
                         chunk = host_transform(chunk)
                     buf[off:off + len(chunk)].copy_(to_tensor(chunk, "cpu"))
@@ -275,12 +329,15 @@ class Trainer:
         raw_dev = up(ds._raw)
         teacher_dev = up(ds._teacher)
         fg_dev = up(ds._fg, pack_fg_bits) if self._fg_needed() else None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self._log({
             "event": "device_cache_upload",
-            "rows": [0, int(n)],
-            "bytes": int(self._cache_nbytes(ds)),
+            "rows": [int(lo), int(hi)],
+            "bytes": int((hi - lo) / max(len(ds), 1)
+                         * self._cache_nbytes(ds)),
             "fg": "packed" if fg_dev is not None else "skipped",
-            "wall_s": round(time.time() - t0, 1),
+            "wall_s": round(time.time() - t0, 4),
         })
         return raw_dev, teacher_dev, fg_dev
 
@@ -301,7 +358,8 @@ class Trainer:
         )
         val_loader = DataLoader(val_ds, self.batch_size,
                                 make_count_val_collate())
-        use_dev_cache = self._resolve_device_cache(train_ds)
+        n_shards = self._resolve_device_cache(train_ds)
+        use_dev_cache = n_shards > 0
         if self.augment and not use_dev_cache:
             raise ValueError(
                 "augment=True requires device-cache mode (the orientation "
@@ -352,6 +410,7 @@ class Trainer:
             "total_steps": total_steps,
             "steps_per_epoch": steps_per_epoch,
             "device_cache": bool(use_dev_cache),
+            "device_cache_shards": n_shards,
             "augment": self.augment,
             "device": str(self.device),
         })
@@ -366,6 +425,10 @@ class Trainer:
             step += 1
             stats = timer.step() or {}
             if step % self.log_every == 0 or step == total_steps:
+                self._scalar("train_loss", float(loss), step)
+                if "voxels_per_sec" in stats:
+                    self._scalar("voxels_per_sec", stats["voxels_per_sec"],
+                                 step)
                 self._log({
                     "event": "train", "step": step, "epoch": epoch,
                     "loss": float(loss),
@@ -376,9 +439,9 @@ class Trainer:
                 self.validate_and_checkpoint(state, eval_step, val_loader,
                                              step)
 
-        if use_dev_cache:
+        samples_per_epoch = steps_per_epoch * self.batch_size
+        if n_shards == 1:
             raw_dev, teacher_dev, fg_dev = self._upload_cache(train_ds)
-            samples_per_epoch = steps_per_epoch * self.batch_size
             for epoch in range(start_epoch, self.epochs):
                 # The DataLoader's permutation stream, sent once per epoch.
                 order = np.random.default_rng(
@@ -391,6 +454,37 @@ class Trainer:
                         state, raw_dev, teacher_dev, fg_dev,
                         order[lo:lo + self.batch_size])
                     bookkeep(state, loss, epoch)
+        elif use_dev_cache:
+            # Shard rotation: each epoch walks S contiguous shards of whole
+            # batches, one on the device at a time, each shuffled on its
+            # own (SeedSequence([seed, epoch, s])); every epoch still visits
+            # every patch.
+            shard_rows = -(-steps_per_epoch // n_shards) * self.batch_size
+            for epoch in range(start_epoch, self.epochs):
+                for s in range(n_shards):
+                    row_lo = s * shard_rows
+                    row_hi = min(samples_per_epoch, row_lo + shard_rows)
+                    if row_lo >= row_hi:
+                        break
+                    raw_dev, teacher_dev, fg_dev = self._upload_cache(
+                        train_ds, row_lo, row_hi)
+                    order = np.random.default_rng(
+                        np.random.SeedSequence([self.seed, epoch, s])
+                    ).permutation(row_hi - row_lo)
+                    order = torch.from_numpy(order.astype(np.int64)).to(
+                        self.device)
+                    for lo in range(0, len(order), self.batch_size):
+                        state, loss = train_step(
+                            state, raw_dev, teacher_dev, fg_dev,
+                            order[lo:lo + self.batch_size])
+                        bookkeep(state, loss, epoch)
+                    # The freed shard goes back to the caching allocator,
+                    # which reuses it for the next one in stream order.
+                    # Draining the stream first keeps the next upload's
+                    # logged time the copy's own.
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    del raw_dev, teacher_dev, fg_dev, order
         else:
             for epoch in range(start_epoch, self.epochs):
                 train_loader.set_epoch(epoch)
@@ -400,22 +494,24 @@ class Trainer:
                     bookkeep(state, loss, epoch)
         if step % self.val_every != 0:
             self.validate_and_checkpoint(state, eval_step, val_loader, step)
+        if self._writer is not None:
+            self._writer.flush()
         return state
 
     # ------------------------------------------------------- validation
 
-    def validate(self, state, eval_step, val_loader):
-        """Loss, count-space metrics and compression evidence.
+    def validate(self, state, eval_step, val_loader, step):
+        """Loss, count-space metrics and compression evidence; MIPs of the
+        first ``keep_mips`` predictions are written for ``step``.
 
         Each batch: the eval step and the metrics + cratio proxy on the
         device, only ``(B,)`` results to the host; exact chunked cratios
         of the first ``exact_cratio_examples`` predictions on the host.
-        (The reference's per-example host-oracle path,
-        ``val_device_metrics=False``, is not ported; its metrics,
-        :func:`exaspim_tpu_torch.ops.metrics.evaluate_example`, are the
-        oracle the tests hold these to.)"""
+        With ``val_device_metrics=False``, :meth:`_validate_host`."""
+        if not self.val_device_metrics:
+            return self._validate_host(state, eval_step, val_loader, step)
         losses, proxies, exact_cratios = [], [], []
-        sums, n_rows, n_seen = {}, 0, 0
+        sums, n_rows, n_seen, n_mips = {}, 0, 0, 0
         for x, y, _counts, fg in val_loader:
             if (self.max_val_examples is not None
                     and n_seen >= self.max_val_examples):
@@ -435,12 +531,20 @@ class Trainer:
                 sums[k] = sums.get(k, 0.0) + float(np.sum(v[:take]))
             n_rows += take
             proxies.extend(proxy[:take].cpu().tolist())
+            # Bounded host pulls: exact ratios and MIPs of the leading
+            # examples only.
             n_exact = min(take, max(
                 0, self.exact_cratio_examples - len(exact_cratios)))
-            if n_exact > 0:
-                head = pred[:n_exact, ..., 0].cpu().numpy().astype(np.uint16)
-                exact_cratios.extend(compute_cratio(v, self.codec)
-                                     for v in head)
+            n_pull = max(n_exact, min(take, self.keep_mips - n_mips))
+            if n_pull > 0:
+                head = pred[:n_pull, ..., 0].cpu().numpy().astype(np.uint16)
+                for i in range(n_pull):
+                    if i < n_exact:
+                        exact_cratios.append(
+                            compute_cratio(head[i], self.codec))
+                    if n_mips < self.keep_mips:
+                        self._save_mip(head[i], step, n_mips)
+                        n_mips += 1
             n_seen += take
         agg = {k: s / n_rows for k, s in sums.items()} if n_rows else {}
         result = {
@@ -456,10 +560,56 @@ class Trainer:
         ) if n_rows else float("inf")
         return result
 
+    def _validate_host(self, state, eval_step, val_loader, step):
+        """Per-example host-oracle validation: every prediction comes to
+        the host and is scored by
+        :func:`~exaspim_tpu_torch.ops.metrics.evaluate_example`, with its
+        exact cratio where a codec is set (``exact_cratio_examples > 0``;
+        else ``val_cratio`` is 0.0)."""
+        losses, cratios, rows = [], [], []
+        n_seen = n_mips = 0
+        for x, y, counts, fg in val_loader:
+            if (self.max_val_examples is not None
+                    and n_seen >= self.max_val_examples):
+                break
+            loss, pred = eval_step(
+                state, *(to_tensor(a, self.device) for a in (x, y, fg)))
+            losses.append(float(loss))
+            # The eval step inverse-maps on the device: pred is counts.
+            pred = pred[..., 0].cpu().numpy().astype(np.uint16)
+            y_np = np.asarray(y)[..., 0]
+            fg_np = np.asarray(fg)[..., 0].astype(bool)
+            for i in range(pred.shape[0]):
+                if (self.max_val_examples is not None
+                        and n_seen >= self.max_val_examples):
+                    break
+                if self.codec is not None:
+                    cratios.append(compute_cratio(pred[i], self.codec))
+                rows.append(evaluate_example(
+                    pred[i], np.asarray(counts[i]), y_np[i], fg_np[i]))
+                if n_mips < self.keep_mips:
+                    self._save_mip(pred[i], step, n_mips)
+                    n_mips += 1
+                n_seen += 1
+        agg = {k: float(np.mean([r[k] for r in rows]))
+               for k in rows[0]} if rows else {}
+        result = {
+            "val_loss": float(np.mean(losses)) if losses else float("nan"),
+            "val_cratio": float(np.median(cratios)) if cratios else 0.0,
+            **{f"val_{k}": v for k, v in agg.items()},
+        }
+        result["val_score"] = checkpoint_score(
+            agg, result["val_cratio"], self.checkpoint_weights
+        ) if rows else float("inf")
+        return result
+
     def validate_and_checkpoint(self, state, eval_step, val_loader, step):
-        """Validate, log, and write the scored checkpoint (and, every
-        ``full_state_every``-th time, ``latest_state.ckpt``)."""
-        metrics = self.validate(state, eval_step, val_loader)
+        """Validate, log (and write the scalars), and write the scored
+        checkpoint (and, every ``full_state_every``-th time,
+        ``latest_state.ckpt``)."""
+        metrics = self.validate(state, eval_step, val_loader, step)
+        for k, v in metrics.items():
+            self._scalar(k, v, step)
         self._log({"event": "val", "step": step, **metrics})
         path = os.path.join(
             self.ckpt_dir, checkpoint_filename(step, metrics["val_score"]))
@@ -477,6 +627,26 @@ class Trainer:
 
     # ---------------------------------------------------------- logging
 
+    def _scalar(self, tag, value, step):
+        if self._writer is not None:
+            self._writer.add_scalar(tag, value, step)
+
     def _log(self, record):
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record, default=float) + "\n")
+
+    def _save_mip(self, counts, step, index):
+        """Write the z max-projection of a prediction as an 8-bit PNG
+        (scaled to its maximum) into ``mip_dir``; a failure is logged,
+        not raised."""
+        try:
+            from PIL import Image
+
+            mip = counts.max(axis=0).astype(np.float32)
+            hi = max(float(mip.max()), 1.0)
+            img = (255 * mip / hi).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(
+                self.mip_dir, f"step{step:07d}_ex{index}.png"))
+        except Exception as exc:
+            self._log({"event": "mip_failed", "step": step,
+                       "error": repr(exc)})

@@ -1,16 +1,20 @@
-"""Image IO for local stores: Zarr / N5 / TIFF readers, Zarr v3 and OME-Zarr
-writers, coordinate transforms, patch access.
+"""Image IO: Zarr / N5 / neuroglancer precomputed / TIFF readers, Zarr v3
+and OME-Zarr writers, coordinate transforms, patch access.
 
 Counterpart of ``exaspim_tpu/utils/img_io.py``, on **tensorstore** as there:
 reads are lazy TensorStore views (slice, then ``.read().result()``), writes
 produce Zarr v3 arrays with blosc-zstd codecs and OME-NGFF multiscale
 metadata, so a store written by one package is read by the other.
-``tensorstore`` and PIL are imported inside the functions that need them.
+``tensorstore``, ``fsspec`` and PIL are imported inside the functions that
+need them.
 
-Local paths only in this slice: cloud URLs (``gs://``, ``s3://``),
-neuroglancer ``precomputed://`` volumes and JPEG-XL-coded Zarr stores
-raise ``NotImplementedError`` (they come with the live-data and codec
-slice: ``utils/cloud.py``, ``compression/jxl.py``).
+Paths are local or cloud URLs (``gs://`` and ``s3://`` open as
+tensorstore's gcs and anonymous s3 kvstores). A neuroglancer
+``precomputed://`` volume, or any store with an ``info`` file and no Zarr
+metadata (probed with one ``<prefix>/info`` lookup through fsspec for a
+URL), opens as a lazy (z, y, x) view. JPEG-XL-coded Zarr stores raise
+``NotImplementedError``: they come with the codec slice
+(``compression/jxl.py``).
 
 The patch bounds check uses ``all``: every axis must be in range.
 """
@@ -39,26 +43,21 @@ __all__ = [
 ]
 
 _SHUFFLE_NAMES = {0: "noshuffle", 1: "shuffle", 2: "bitshuffle"}
-_LATER = ("{what} is not ported yet: it comes with the live-data and codec "
-          "slice (utils/cloud.py, compression/jxl.py); got {path!r}")
-
-
-def _local(path):
-    """``path`` as a string, refusing what only a later slice serves."""
-    path = str(path)
-    if path.startswith(("gs://", "s3://")):
-        raise NotImplementedError(
-            _LATER.format(what="cloud storage", path=path))
-    if "precomputed://" in path:
-        raise NotImplementedError(
-            _LATER.format(what="the neuroglancer precomputed reader",
-                          path=path))
-    return path
 
 
 def _kvstore(path):
-    """tensorstore kvstore spec of a local path."""
-    return {"driver": "file", "path": os.path.abspath(_local(path))}
+    """tensorstore kvstore spec from a local path or cloud URL."""
+    path = str(path)
+    if path.startswith("gs://"):
+        bucket, _, prefix = path[5:].partition("/")
+        return {"driver": "gcs", "bucket": bucket, "path": prefix}
+    if path.startswith("s3://"):
+        bucket, _, prefix = path[5:].partition("/")
+        return {
+            "driver": "s3", "bucket": bucket, "path": prefix,
+            "aws_credentials": {"anonymous": True},
+        }
+    return {"driver": "file", "path": os.path.abspath(path)}
 
 
 def _open_ts(spec):
@@ -74,7 +73,7 @@ def read(path, dataset=None):
     numpy array for TIFF. ``dataset`` selects a subgroup / level (e.g. "0"
     for the full-resolution OME-Zarr level).
     """
-    p = _local(path).rstrip("/")
+    p = str(path).rstrip("/")
     if dataset is not None:
         p = f"{p}/{dataset}"
     lower = p.lower()
@@ -82,11 +81,14 @@ def read(path, dataset=None):
         return _read_tiff(p)
     if lower.endswith(".n5") or ".n5/" in lower:
         return _open_ts({"driver": "n5", "kvstore": _kvstore(p)})
-    if os.path.exists(os.path.join(p, "info")) and not (
-            os.path.exists(os.path.join(p, "zarr.json"))
-            or os.path.exists(os.path.join(p, ".zarray"))):
-        raise NotImplementedError(
-            _LATER.format(what="the neuroglancer precomputed reader", path=p))
+    if "precomputed://" in p or _is_neuroglancer_precomputed(p):
+        vol = _open_ts({
+            "driver": "neuroglancer_precomputed",
+            "kvstore": _kvstore(p.replace("precomputed://", "")),
+        })
+        # Neuroglancer stores (x, y, z, channel): the package's lazy view
+        # is (z, y, x).
+        return vol[..., 0].T
     # zarr: try v3 then v2.
     try:
         return _open_ts({"driver": "zarr3", "kvstore": _kvstore(p)})
@@ -95,17 +97,53 @@ def read(path, dataset=None):
             return _open_ts({"driver": "zarr", "kvstore": _kvstore(p)})
         except Exception:
             if _is_jxl_zarr(p):
-                raise NotImplementedError(_LATER.format(
-                    what="the JPEG-XL-coded Zarr reader", path=p)) from None
+                raise NotImplementedError(
+                    "the JPEG-XL-coded Zarr reader is not ported yet: it "
+                    "comes with the codec slice (compression/jxl.py); got "
+                    f"{p!r}") from None
             raise
 
 
+def _is_neuroglancer_precomputed(path):
+    """A store is neuroglancer precomputed iff it has an ``info`` file and
+    no Zarr metadata. A URL (any fsspec scheme) is probed the same way
+    through :mod:`exaspim_tpu_torch.utils.cloud`; an unreachable or
+    unknown one reads as not precomputed."""
+    if "://" in path:
+        from exaspim_tpu_torch.utils import cloud
+
+        try:
+            return cloud.exists(f"{path}/info") and not (
+                cloud.exists(f"{path}/zarr.json")
+                or cloud.exists(f"{path}/.zarray"))
+        except Exception:
+            return False
+    return os.path.exists(os.path.join(path, "info")) and not (
+        os.path.exists(os.path.join(path, "zarr.json"))
+        or os.path.exists(os.path.join(path, ".zarray")))
+
+
+def _store_bytes(path):
+    """Raw bytes at ``path`` (local or any fsspec URL); None if absent."""
+    if "://" in path:
+        from exaspim_tpu_torch.utils.cloud import _fs
+
+        fs, p, _ = _fs(path)
+        if not fs.exists(p):
+            return None
+        with fs.open(p, "rb") as f:
+            return f.read()
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def _is_jxl_zarr(path):
-    meta = os.path.join(path, ".zarray")
-    if not os.path.exists(meta):
+    raw = _store_bytes(f"{path}/.zarray")
+    if raw is None:
         return False
-    with open(meta) as f:
-        comp = json.load(f).get("compressor") or {}
+    comp = json.loads(raw).get("compressor") or {}
     return comp.get("id") == "imagecodecs_jpegxl"
 
 
@@ -179,7 +217,21 @@ def get_patch(img, voxel, shape, from_center=True):
 
 def _read_group_attrs(group_path):
     """OME attributes of a zarr group (v3 zarr.json or v2 .zattrs)."""
-    group_path = _local(group_path)
+    if group_path.startswith(("gs://", "s3://")):
+        from exaspim_tpu_torch.utils.util import (
+            cloud_filesystem,
+            parse_cloud_path,
+        )
+
+        fs = cloud_filesystem(group_path)
+        _, bucket, prefix = parse_cloud_path(group_path)
+        for name in ("zarr.json", ".zattrs"):
+            key = f"{bucket}/{prefix}/{name}"
+            if fs.exists(key):
+                with fs.open(key) as f:
+                    doc = json.load(f)
+                return doc.get("attributes", doc)
+        raise FileNotFoundError(f"no zarr metadata under {group_path}")
     for name in ("zarr.json", ".zattrs"):
         p = os.path.join(group_path, name)
         if os.path.exists(p):
@@ -388,10 +440,20 @@ def _write_group_meta(path, attributes):
         "zarr_format": 3, "node_type": "group",
         "attributes": attributes,
     }, indent=2)
-    path = _local(path)
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "zarr.json"), "w") as f:
-        f.write(doc)
+    if str(path).startswith(("gs://", "s3://")):
+        from exaspim_tpu_torch.utils.util import (
+            cloud_filesystem,
+            parse_cloud_path,
+        )
+
+        fs = cloud_filesystem(path)
+        _, bucket, prefix = parse_cloud_path(str(path))
+        with fs.open(f"{bucket}/{prefix}/zarr.json", "w") as f:
+            f.write(doc)
+    else:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "zarr.json"), "w") as f:
+            f.write(doc)
 
 
 # ------------------------------------------------------- coordinate utils

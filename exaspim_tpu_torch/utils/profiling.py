@@ -1,15 +1,54 @@
-"""Step observability: wall-clock step and throughput counters.
+"""Profiling and step observability.
 
-Copy of ``exaspim_tpu/utils/profiling.py:StepTimer``. The times are host
-clock between calls; on the card a step's time is its device time only
-where the caller synchronises (a loss read does).
+Counterpart of ``exaspim_tpu/utils/profiling.py``:
+
+* :func:`trace` — context manager around ``torch.profiler`` that writes a
+  trace of the host and (on the card) the device into ``log_dir``, as
+  ``<host>_<pid>.<timestamp>.pt.trace.json``: Chrome's ``about:tracing`` (or
+  Perfetto) and TensorBoard's PyTorch profiler plugin load it.
+* :class:`StepTimer` — wall-clock step / throughput counters with EMA
+  smoothing, reporting steps/s and voxels/s. The times are host clock
+  between calls; on the card a step's time is its device time only where
+  the caller synchronises (a loss read does).
+* :func:`device_memory_stats` — device memory in use and its limit, per
+  CUDA device, with the JAX package's keys.
+* :func:`log_jsonl` — append one JSON record to a ``.jsonl`` file.
+
+Nothing here touches the card at import.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import time
 
-__all__ = ["StepTimer"]
+__all__ = ["trace", "StepTimer", "device_memory_stats", "log_jsonl"]
+
+
+@contextlib.contextmanager
+def trace(log_dir, enabled=True):
+    """Capture a ``torch.profiler`` trace (CPU, plus CUDA where a card is
+    present) of the enclosed block into ``log_dir``; yields the profiler
+    (``key_averages()`` for a table) or None when disabled, so call sites
+    can leave it in production code."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) \
+            as prof:
+        yield prof
 
 
 class StepTimer:
@@ -52,3 +91,28 @@ class StepTimer:
                 self.voxels_per_step / max(self._smoothed, 1e-9), 1
             )
         return stats
+
+
+def device_memory_stats():
+    """``{"cuda:<i>": {"bytes_in_use", "bytes_limit"}}`` for every CUDA
+    device: the bytes the caching allocator holds for tensors and the
+    card's total memory. Without a card, ``{"cpu": None}``: no device
+    reports memory there, as the JAX package's CPU devices report none."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {"cpu": None}
+    out = {}
+    for i in range(torch.cuda.device_count()):
+        out[f"cuda:{i}"] = {
+            "bytes_in_use": int(torch.cuda.memory_allocated(i)),
+            "bytes_limit": int(torch.cuda.get_device_properties(i)
+                               .total_memory),
+        }
+    return out
+
+
+def log_jsonl(path, record):
+    """Append one JSON record to a .jsonl file (shared logging helper)."""
+    with open(path, "a") as f:
+        f.write(json.dumps(record, default=float) + "\n")

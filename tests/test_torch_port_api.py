@@ -39,15 +39,9 @@ PACKAGES = ("", "ops", "data", "train", "models", "compression", "utils")
 
 #: reference names whose function is not ported yet (ROADMAP.md §1).
 NOT_PORTED = {
-    "highfreq_energy_fraction", "local_autocorr",
-    "make_segmentation_mask", "make_skeleton_mask",
-    "patch_has_incoherent_segment", "make_train_collate", "make_val_collate",
     "Jpeg2000SliceCodec", "JpegSliceCodec", "PngSliceCodec", "JxlSliceCodec",
     "jxl_available", "compute_cratio_2d", "compute_cratio_jpegxl",
-    "compress_and_decompress_2d", "ANISOTROPY", "Reader", "cloud",
-    "is_cloud_path", "list_cloud_paths", "list_dir", "list_paths", "mkdir",
-    "parse_cloud_path", "read_json", "read_txt", "rmdir", "to_voxels",
-    "write_json", "write_txt",
+    "compress_and_decompress_2d",
 }
 
 

@@ -835,3 +835,73 @@ def test_new_families_on_the_kernels(family, kw):
         ref = cpu(x)
     rel = ((y.detach().cpu() - ref).norm() / ref.norm()).item()
     assert np.isfinite(rel) and rel <= 2e-2
+
+
+def _live_brain():
+    """A 48³ tube brain (uint16) with a labelled segmentation of its tube."""
+    from exaspim_tpu_torch.data.synthetic import (
+        neurite_phantom,
+        noisy_observation,
+    )
+
+    clean, fg = neurite_phantom((48, 48, 48), n_tubes=4, seed=3)
+    return noisy_observation(clean, seed=4), fg.astype(np.uint32)
+
+
+@pytest.mark.gpu
+def test_live_teacher_on_the_card_matches_the_cpu():
+    """The live sampler with its teacher on the card draws what it draws
+    on the CPU (host work, same seed), and the teacher is held to the
+    card-vs-CPU bound of ``test_bm4d_on_the_card_is_deterministic_and_
+    matches_the_cpu``: within 1 count, at most 1e-3 of the voxels apart;
+    two fused matcher launches a patch."""
+    _card()
+    from exaspim_tpu_torch.data.live import TrainDataset
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+
+    vol, seg = _live_brain()
+    pair = []
+    for device in ("cuda", "cpu"):
+        ds = TrainDataset(patch_shape=(32, 32, 32), boundary_buffer=0,
+                          sigma_bm4d=24.0, seed=5, device=device)
+        ds.ingest_brain("b", vol, segmentation=seg, offset=7)
+        before = match_topk.launches
+        pair.append(ds.sample_example())
+        assert match_topk.launches - before == (2 if device == "cuda" else 0)
+    (rc, tc, fc, bc, vc), (rh, th, fh, bh, vh) = pair
+    assert (bc, vc) == (bh, vh)
+    assert np.array_equal(rc, rh) and np.array_equal(fc, fh)
+    d = np.abs(tc.astype(np.int64) - th)
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_worker_processes_on_the_card(tmp_path):
+    """With CUDA up in the parent, a cache dataset (numpy items) still
+    streams through forked workers, equal to the thread stream; a live
+    dataset (its teacher runs torch ops on the card) is refused."""
+    _card()
+    from exaspim_tpu_torch.data.cache import CachedPatchDataset
+    from exaspim_tpu_torch.data.live import TrainDataset
+    from exaspim_tpu_torch.data.loader import (
+        DataLoader,
+        make_count_train_collate,
+    )
+
+    torch.ones(1, device="cuda")  # CUDA initialised in this process
+    train, _ = _card_caches(tmp_path)
+    ds = CachedPatchDataset(train)
+    kw = dict(shuffle=True, seed=3)
+    workers = DataLoader(ds, 4, make_count_train_collate(), num_workers=2,
+                         **kw)
+    try:
+        got = list(workers)
+    finally:
+        workers.close()
+    want = list(DataLoader(ds, 4, make_count_train_collate(), **kw))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    live = TrainDataset(patch_shape=(32, 32, 32), device="cuda")
+    with pytest.raises(ValueError, match="torch ops"):
+        DataLoader(live, 2, make_count_train_collate(), num_workers=2)

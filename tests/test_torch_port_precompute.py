@@ -89,7 +89,9 @@ def test_module_constants_and_refusals(tmp_path):
         tp.precompute(str(tmp_path / "c"), transform_cfg={
             "kind": "asinh", "params": {"scale": 60.0},
             "calibrate": {"n": 4}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # The live source needs its brain-spec JSON; refused before any file
+    # is written.
+    with pytest.raises(ValueError, match="brain-spec"):
         tp.precompute(str(tmp_path / "l"), source="live", device="cpu")
     assert not os.path.exists(tmp_path / "l")
     import inspect
