@@ -177,7 +177,34 @@ line:
     in batches a second, on the cache and on phantoms made per item. Fails unless the losses are
     finite and fall, the shard index stream equals ``SeedSequence([seed,
     epoch, s])``'s and the sharded run's peak memory stays below the
-    resident run's plus one shard (its cache footprint under two shards).
+    resident run's plus one shard (its cache footprint under two shards);
+24. codecs on the card's machine, on phase 4's noisy and denoised block:
+    ``compute_cratio_2d`` with ``PngSliceCodec`` (lossless, so exact) and
+    its round trip bit-equal; ``compress_and_decompress_2d`` of the
+    denoised block with ``Jpeg2000SliceCodec`` and ``JpegSliceCodec``,
+    each ratio with PSNR and SSIM against its input on the card; JPEG-XL
+    and the native blosc walk only where their library loads, else one
+    line names it and no number is reported (phase 25's two processes
+    start first and run beside it);
+25. multi-GPU on the one card, three ways. Two processes over gloo
+    (started with ``spawn``, the backend named: NCCL refuses two ranks on
+    one device), whose halos cross a process boundary: ``predict_sharded``
+    of the 256³ block in both stitch branches (the parity canvas at
+    phase 4's plan, each rank only its rows of the global grid; patch 64,
+    overlap 36 patch by patch), each bit-equal to one ``predict`` on every
+    rank, with the conv launches per rank;
+    ``bm4d_sharded`` of a 132 x 64 x 64 volume (two slabs of 66, halo 30),
+    bit-equal to ``bm4d`` of the reflect-extended volume cropped back,
+    two fused-matcher launches a rank; one data-parallel step, 2 ranks x
+    16 against one step of 32 from the shipped weights, the loss, the
+    gradient's relative L2 and the parameters within the stated limits
+    and the parameters bit-equal across the ranks (their times printed and
+    marked as a correctness check, not a speed figure). NCCL at world
+    size 1 in this process, through torchrun's environment:
+    ``bm4d_sharded`` bit-equal, the step bit-equal to the single step and
+    ``train(data_parallel=True)`` for one epoch (4 steps), counted, beside
+    the two processes; after them the same two predicts, counted, timed
+    and bit-equal.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -335,6 +362,27 @@ N2V_LOSS_RTOL = {None: 0.005, 1.0: 0.15}
 N2V_PARAM_ATOL = 2e-3 * 1.001
 N2V_GRAD_REL_L2 = GRAD_REL_L2_F32
 N2V_FLIP_SHARE = 0.15
+# Multi-GPU (phase 25). The scatter branch of predict_sharded (patch > 2 x
+# stride): patch 64, overlap 36 on the 256^3 block. BM4D on a 2-slab volume
+# at the defaults (halo 30): each core MGPU_BM4D_CORE planes (a multiple of
+# the step, above the halo). The data-parallel step: 2 ranks x DP_BATCH/2
+# against one step of DP_BATCH from the shipped weights on phase 10's cache;
+# then train(data_parallel=True) for MGPU_TRAIN_EPOCHS epochs of it.
+MGPU_SCATTER = dict(patch_size=64, overlap=36, trim=TRIM, batch_size=8)
+MGPU_BM4D_CORE, MGPU_BM4D_YX, DP_BATCH, MGPU_TRAIN_EPOCHS = 66, 64, 32, 1
+# The data-parallel step (2 ranks x 16, the gradients all-reduced to the
+# mean) against one step of 32 on the card, both bf16 from the same
+# weights: the same per-patch forward, the sums over the batch taken in
+# another order (two halves' means, the dL/dW kernel's tiles over 16
+# patches instead of 32). Adam's first update is about lr · sign(g), so a
+# parameter moves at most 2 · lr apart where a near-zero gradient's sign
+# flips, and the share apart by more than 1e-6 counts those flips. Set at
+# about twice the first reading on an H100 (PERF.md): gradient relative
+# L2 2.7e-3, share apart 1.13 %; loss 6.9e-8 relative (the limit 1e-6,
+# about eight f32 ulps); parameters at most 5.1e-4 apart (the limit
+# 2 · lr).
+DP_LOSS_RTOL, DP_GRAD_REL_L2 = 1e-6, 6e-3
+DP_PARAM_ATOL, DP_FLIP_SHARE = 2e-3 * 1.001, 0.025
 
 _T0 = time.time()
 
@@ -3189,6 +3237,460 @@ def profile_report(prof, key, wall, lo=float("-inf"), hi=float("inf"),
                     for dev_us, name, count in rows[:15]]}
 
 
+def codec_path(img, out):
+    """Phase 24: the compression package's slice codecs and ratios on the
+    card's machine, on phase 4's noisy and denoised 256^3 block. PNG is
+    lossless: its ratio is exact and its round trip must be bit-equal.
+    JPEG 2000 and JPEG go through compress_and_decompress_2d, scored
+    (PSNR, SSIM) against their input on the card. JPEG-XL and the native
+    blosc walk run only where their library loads; otherwise one line
+    names the missing library and no number is reported for them."""
+    from exaspim_tpu_torch.ckpt_quality import score
+    from exaspim_tpu_torch.compression import (
+        BloscCodec,
+        Jpeg2000SliceCodec,
+        JpegSliceCodec,
+        JxlSliceCodec,
+        PngSliceCodec,
+        blosc_available,
+        compress_and_decompress_2d,
+        compute_cratio,
+        compute_cratio_2d,
+        jxl,
+        native,
+    )
+
+    rec = {"jpegxl": None, "blosc_cratio": None}
+    lossy = [("jpeg2000", Jpeg2000SliceCodec), ("jpeg", JpegSliceCodec)]
+    if jxl.available():
+        lossy.append(("jpegxl", JxlSliceCodec))
+    else:
+        rec["jpegxl_missing"] = jxl.unavailable_reason()
+        print(f"JPEG-XL: not run ({rec['jpegxl_missing']})", flush=True)
+    blosc_why = (native.unavailable_reason() if blosc_available()
+                 else "libblosc.so.1 not found")
+    if blosc_why:
+        rec["blosc_missing"] = blosc_why
+        print(f"blosc ratio (Python and native walks): not run "
+              f"({blosc_why})", flush=True)
+    for name, vol in (("noisy", img), ("denoised", out)):
+        r = {}
+        t0 = time.perf_counter()
+        r["png_cratio"] = compute_cratio_2d(vol, PngSliceCodec())
+        back, r["png_roundtrip_cratio"] = compress_and_decompress_2d(
+            vol, PngSliceCodec())
+        r["png_s"] = time.perf_counter() - t0
+        if not np.array_equal(back, vol):
+            fail(f"PNG round trip of the {name} block is not bit-equal")
+        for cname, cls in lossy if name == "denoised" else ():
+            t0 = time.perf_counter()
+            dec, ratio = compress_and_decompress_2d(vol, cls())
+            s = score(dec, vol, None, device="cuda")
+            r[cname] = {"cratio": ratio, "psnr_db": s["psnr_db"],
+                        "ssim": s["ssim"], "s": time.perf_counter() - t0}
+            if not (ratio > 1 and np.isfinite(s["psnr_db"])
+                    and np.isfinite(s["ssim"])):
+                fail(f"{cname} on the {name} block: {r[cname]}")
+        if not blosc_why:
+            t0 = time.perf_counter()
+            r["blosc_cratio"] = compute_cratio(vol, BloscCodec())
+            r["blosc_native_s"] = time.perf_counter() - t0
+            walk = compute_cratio(vol, BloscCodec(), use_native=False)
+            if walk != r["blosc_cratio"]:
+                fail(f"native blosc ratio {r['blosc_cratio']} != the Python "
+                     f"walk's {walk}")
+        print(f"{name}: PNG cratio {r['png_cratio']} (exact; round trip "
+              f"bit-equal, {r['png_roundtrip_cratio']} in its 32x256x256 "
+              f"chunks) {r['png_s']:.2f} s; " + "; ".join(
+                  f"{c} cratio {r[c]['cratio']} psnr {r[c]['psnr_db']:.4f} "
+                  f"dB ssim {r[c]['ssim']:.6f} ({r[c]['s']:.2f} s)"
+                  for c, _ in lossy if c in r)
+              + (f"; blosc {r['blosc_cratio']}" if not blosc_why else ""),
+              flush=True)
+        rec[name] = r
+    rec["png_gain"] = (rec["denoised"]["png_cratio"]
+                       / rec["noisy"]["png_cratio"])
+    print(f"PNG (lossless) ratio gain noisy -> denoised "
+          f"{rec['png_gain']:.4f}", flush=True)
+    return rec
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sha(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def mgpu_predicts(patch, batch):
+    """Phase 25's two predict_sharded geometries of the 256^3 block: the
+    parity canvas at phase 4's plan, and the patch-by-patch stitch."""
+    return (("canvas", dict(patch_size=patch, overlap=OVERLAP, trim=TRIM,
+                            batch_size=batch)),
+            ("scatter", MGPU_SCATTER))
+
+
+def dp_setup(train_dir, model=None):
+    """A train state from the shipped weights (width 1.0, bf16; into
+    ``model`` when given, a model restored from them) and the first
+    DP_BATCH patches of phase 10's cache as count batches on the card;
+    returns (state, (x, y, fg), transform, the gradients list that the
+    state's update records)."""
+    import torch
+
+    from exaspim_tpu_torch.data.cache import CachedPatchDataset
+    from exaspim_tpu_torch.data.loader import to_tensor
+    from exaspim_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        restore_pipeline,
+    )
+    from exaspim_tpu_torch.train.state import create_train_state
+    from exaspim_tpu_torch.transforms import build_transform
+
+    ckpt = load_checkpoint(CKPT)
+    if model is None:
+        model, _ = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                    device="cuda")
+    state = create_train_state(model, lr=1e-3, total_steps=100,
+                               params=ckpt["params"])
+    transform = build_transform(ckpt["transform"])
+    ds = CachedPatchDataset(train_dir)
+    batch = tuple(to_tensor(np.asarray(a[0][:DP_BATCH])[..., None], "cuda")
+                  for a in (ds._raw, ds._teacher, ds._fg))
+    grads, apply = [], state.apply_gradients
+
+    def spy():  # the (all-reduced) gradient AdamW receives
+        grads.append(torch.cat([p.grad.reshape(-1).float()
+                                for p in model.parameters()]))
+        return apply()
+
+    state.apply_gradients = spy
+    return state, batch, transform, grads
+
+
+def _flat_params(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in state.model.parameters()]).cpu().numpy()
+
+
+def mgpu_worker(rank, world, port, job_dir):
+    """Phase 25: one of two processes sharing the one card over gloo.
+    Runs predict_sharded (both stitch branches), bm4d_sharded and one
+    data-parallel step on its share; writes its record (each output's
+    SHA-256; rank 0 also the step's parameters and gradient) into
+    ``job_dir``."""
+    import importlib
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from exaspim_tpu_torch import parallel as par
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+
+    # A process's first torch.use_deterministic_algorithms call (BM4D's
+    # scoped mode) imports torch._inductor, ~10 s from source on the card's
+    # machine: import it beside the predicts instead of inside bm4d_sharded.
+    warm = threading.Thread(target=importlib.import_module,
+                            args=("torch._inductor.config",), daemon=True)
+    warm.start()
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    par.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                             local_device_ids=[0], backend="gloo")
+    res, big = {"backend": dist.get_backend()}, {}
+    mesh = par.make_mesh(axis="z")
+    model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                        device="cuda")
+    img = np.load(os.path.join(job_dir, "img.npy"))
+    for name, kw in mgpu_predicts(job["patch"], job["batch"]):
+        nb_conv3d.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = par.predict_sharded(img, model, transform, mesh, **kw)
+        res[f"{name}_s"] = time.perf_counter() - t0
+        res[f"{name}_launches"] = nb_conv3d.launches
+        res[f"{name}_sha"] = _sha(o)
+    vol = np.load(os.path.join(job_dir, "bm4d.npy"))
+    warm.join()
+    match_topk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    den = par.bm4d_sharded(vol, BM_SIGMA, mesh, block=BM_B, group=BM_K,
+                           step=BM_STEP, search=BM_W).cpu().numpy()
+    res["bm4d_s"] = time.perf_counter() - t0
+    res["bm4d_launches"], res["bm4d_sha"] = match_topk.launches, _sha(den)
+    dmesh = par.make_mesh(axis="data")
+    state, batch, transform, grads = dp_setup(job["train_dir"], model)
+    step = par.make_dp_train_step(dmesh, fg_weight=0.0, transform=transform)
+    share = par.shard_batch(dmesh, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, *share)
+    res["dp_loss"] = float(loss)
+    res["dp_s"] = time.perf_counter() - t0
+    res["dp_share"] = int(share[0].shape[0])
+    big["dp_params"] = _flat_params(state)
+    big["dp_grads"] = grads[0].cpu().numpy()
+    res["dp_params_sha"] = _sha(big["dp_params"])
+    with open(os.path.join(job_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        np.savez(os.path.join(job_dir, "rank0.npz"), **big)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_gloo_ranks(img, patch, batch, train_dir):
+    """Start phase 25's two gloo processes (``mgpu_worker``) on their
+    inputs, written under ``chip_smoke_work/mgpu``; returns the process
+    context and the job directory. They run beside phase 24's host
+    codecs."""
+    import torch.multiprocessing as mp
+
+    job = os.path.join(WORK, "mgpu")
+    os.makedirs(job, exist_ok=True)
+    np.save(os.path.join(job, "img.npy"), img)
+    z = 2 * MGPU_BM4D_CORE
+    np.save(os.path.join(job, "bm4d.npy"),
+            img[:z, :MGPU_BM4D_YX, :MGPU_BM4D_YX].astype(np.float32))
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"patch": patch, "batch": batch, "train_dir": train_dir},
+                  f)
+    print("phase 25's two processes start on the one card over gloo, "
+          "backend named explicitly: NCCL refuses two ranks on one "
+          "device, and this machine has one card", flush=True)
+    ctx = mp.start_processes(mgpu_worker, args=(2, _free_port(), job),
+                             nprocs=2, start_method="spawn", join=False)
+    return ctx, job, time.perf_counter()
+
+
+def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
+    """Phase 25: the multi-GPU layer on the one card, three ways: two
+    processes over gloo (``gloo``: :func:`start_gloo_ranks`; halos cross a
+    process boundary), NCCL at world size 1 in this process (torchrun's
+    environment), and the checks here. Each is held against the
+    single-device path; returns the record."""
+    import torch
+    import torch.distributed as dist
+
+    from exaspim_tpu_torch import parallel as par
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.ops.bm4d import bm4d
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.parallel.spatial import (
+        _canvas_rows,
+        _shard_starts,
+    )
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+    from exaspim_tpu_torch.train.state import make_train_step
+    from exaspim_tpu_torch.train.train_bm4dnet import train
+
+    ctx, job, t0 = gloo
+    z = 2 * MGPU_BM4D_CORE
+    vol = np.load(os.path.join(job, "bm4d.npy"))
+
+    # The single-device references, while the two processes run.
+    model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                        device="cuda")
+    predicts = mgpu_predicts(patch, batch)
+    refs = {name: predict(img, model, transform, **kw)
+            for name, kw in predicts}
+    del model
+    halo = par.bm4d_halo(BM_B, BM_W, BM_STEP)
+    ext = np.pad(vol, ((halo, halo), (0, 0), (0, 0)), mode="reflect")
+    oracle = bm4d(ext, BM_SIGMA, block=BM_B, group=BM_K, step=BM_STEP,
+                  search=BM_W, device="cuda")[halo:-halo].cpu().numpy()
+    state, xb, transform, grads = dp_setup(train_dir)
+    state, loss1 = make_train_step(0.0, transform=transform)(state, *xb)
+    single = {"loss": float(loss1), "grads": grads[0].cpu().numpy(),
+              "params": _flat_params(state)}
+    del state, xb, grads
+    torch.cuda.empty_cache()
+
+    # Expected conv launches per rank: 18 a batch of its patches.
+    def want_launches(name, kw, n):
+        if name == "canvas":
+            stride = kw["patch_size"] - kw["overlap"]
+            yx = len(range(0, BLOCK - kw["patch_size"] + stride, stride))
+            counts = [(k1 - k0 + 1) * yx ** 2 for k0, k1 in _canvas_rows(
+                BLOCK, n, kw["patch_size"], kw["overlap"])]
+        else:
+            counts = [len(loc) for loc, _ in _shard_starts(
+                BLOCK, n, kw["patch_size"], kw["overlap"], img.shape)]
+        return [18 * -(-c // kw["batch_size"]) for c in counts]
+
+    # NCCL at world size 1, through torchrun's environment: its untimed
+    # checks run beside the two gloo processes, its timed predicts after.
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        if not par.initialize_multihost() or dist.get_backend() != "nccl":
+            fail("initialize_multihost did not join an NCCL group")
+        if not par.initialize_multihost():  # a second call is ignored
+            fail("a second initialize_multihost call failed")
+        mesh = par.make_mesh(axis="z")
+        dist.barrier()  # NCCL builds its communicator here, not in a timing
+        nccl = {}
+        match_topk.launches = 0
+        den = par.bm4d_sharded(vol, BM_SIGMA, mesh, block=BM_B, group=BM_K,
+                               step=BM_STEP, search=BM_W).cpu().numpy()
+        nccl["bm4d_launches"] = match_topk.launches
+        print(f"nccl, world size 1, bm4d_sharded: bit-equal "
+              f"{np.array_equal(den, oracle)}; match_topk launches "
+              f"{match_topk.launches}", flush=True)
+        if not np.array_equal(den, oracle) or match_topk.launches != 2:
+            fail("bm4d_sharded over NCCL at world size 1")
+        dmesh = par.make_mesh(axis="data")
+        state, xb, transform, grads = dp_setup(train_dir)
+        step = par.make_dp_train_step(dmesh, fg_weight=0.0,
+                                      transform=transform)
+        state, loss = step(state, *par.shard_batch(dmesh, xb))
+        equal = (float(loss) == single["loss"]
+                 and np.array_equal(_flat_params(state), single["params"]))
+        print(f"nccl, world size 1, one data-parallel step of {DP_BATCH}: "
+              f"bit-equal to the single step {equal}", flush=True)
+        if not equal:
+            fail("the data-parallel step at world size 1 is not the single "
+                 "step")
+        del state, xb, grads
+        torch.cuda.empty_cache()
+
+        nb_conv3d.launches = nb_conv3d_dw.launches = 0
+        t1 = time.perf_counter()
+        trainer = train([train_dir], [val_dir], os.path.join(WORK, "dp"),
+                        epochs=MGPU_TRAIN_EPOCHS, batch_size=DP_BATCH,
+                        exact_cratio_examples=0, log_every=1,
+                        data_parallel=True)
+        torch.cuda.synchronize()
+        steps = MGPU_TRAIN_EPOCHS * (N_TRAIN // DP_BATCH)
+        launches = {"nb_conv3d": nb_conv3d.launches,
+                    "nb_conv3d_dw": nb_conv3d_dw.launches}
+        want = {"nb_conv3d": 35 * steps + 18 * -(-N_VAL // DP_BATCH),
+                "nb_conv3d_dw": 18 * steps}
+        with open(trainer._log_path) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["loss"] for e in events if e["event"] == "train"]
+        nccl["train"] = {"s": time.perf_counter() - t1, "steps": steps,
+                         "launches": launches, "losses": losses}
+        print(f"train(data_parallel=True) under torchrun's environment, "
+              f"world size 1: {steps} steps in {nccl['train']['s']:.2f} s "
+              f"(beside the two gloo processes); losses {losses}; launches "
+              f"{launches} (expected {want})", flush=True)
+        if trainer.mesh is None or launches != want or len(losses) != \
+                steps or not np.all(np.isfinite(losses)):
+            fail("train(data_parallel=True) at world size 1")
+
+        while not ctx.join():
+            pass
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(job, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rec = {"gloo": {"ranks": ranks, "wall_s": wall}}
+        print(f"gloo ranks: {wall:.1f} s from their start (beside phase 24) "
+              "to their end", flush=True)
+        rec["gloo"]["dp"] = _gloo_checks(
+            ranks, dict(np.load(os.path.join(job, "rank0.npz"))), refs,
+            oracle, single, predicts, want_launches, z, halo)
+
+        model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                            device="cuda")
+        for name, kw in predicts:  # warm: the references ran these shapes
+            nb_conv3d.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            o = par.predict_sharded(img, model, transform, mesh, **kw)
+            sec = time.perf_counter() - t1
+            want = want_launches(name, kw, 1)[0]
+            nccl[name] = {"s": sec, "launches": nb_conv3d.launches}
+            print(f"nccl, world size 1, {name}: bit-equal to predict "
+                  f"{np.array_equal(o, refs[name])}; nb_conv3d launches "
+                  f"{nb_conv3d.launches} (expected {want}); {sec:.4f} s",
+                  flush=True)
+            if not np.array_equal(o, refs[name]) or \
+                    nb_conv3d.launches != want:
+                fail(f"predict_sharded ({name}) over NCCL at world size 1")
+        rec["nccl"] = nccl
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    return rec
+
+
+def _gloo_checks(ranks, big, refs, oracle, single, predicts, want_launches,
+                 z, halo):
+    """Phase 25's checks of the two gloo processes' records against the
+    single-device references; returns the data-parallel reading."""
+    for name, kw in predicts:
+        got = [r[f"{name}_launches"] for r in ranks]
+        want = want_launches(name, kw, 2)
+        shas = {r[f"{name}_sha"] for r in ranks}
+        equal = shas == {_sha(refs[name])}  # SHA-256 of the bytes
+        print(f"gloo, 2 ranks, {name}: bit-equal to predict {equal}, ranks "
+              f"equal {len(shas) == 1}; nb_conv3d launches per rank {got} "
+              f"(expected {want}, {sum(got)} in all); "
+              + ", ".join(f"{r[f'{name}_s']:.3f}" for r in ranks)
+              + " s per rank (two processes sharing one card: a "
+              "correctness check, not a speed figure)", flush=True)
+        if not equal or len(shas) != 1 or got != want:
+            fail(f"predict_sharded ({name}) over gloo")
+    equal = {r["bm4d_sha"] for r in ranks} == {_sha(oracle)}
+    got = [r["bm4d_launches"] for r in ranks]
+    print(f"gloo, 2 ranks, bm4d_sharded {z}x{MGPU_BM4D_YX}^2 (halo {halo})"
+          f": bit-equal to bm4d of the reflect-extended volume {equal}; "
+          f"match_topk launches per rank {got}; "
+          + ", ".join(f"{r['bm4d_s']:.3f}" for r in ranks)
+          + " s per rank (correctness check, not a speed figure)",
+          flush=True)
+    if not equal or got != [2, 2]:
+        fail("bm4d_sharded over gloo")
+    g_err = float(np.linalg.norm(big["dp_grads"] - single["grads"])
+                  / np.linalg.norm(single["grads"]))
+    dp = np.abs(big["dp_params"] - single["params"])
+    dp_rec = {
+        "loss_rel": abs(ranks[0]["dp_loss"] - single["loss"])
+        / abs(single["loss"]),
+        "grad_rel_l2": g_err, "param_max_abs": float(dp.max()),
+        "param_share_apart": float(np.mean(dp > 1e-6)),
+        "ranks_equal": ranks[0]["dp_params_sha"] == ranks[1][
+            "dp_params_sha"],
+    }
+    print(f"gloo, 2 ranks x {ranks[0]['dp_share']} against one step of "
+          f"{DP_BATCH}: loss {ranks[0]['dp_loss']:.6f} vs "
+          f"{single['loss']:.6f} (rel {dp_rec['loss_rel']:.3e}); gradient "
+          f"rel L2 {g_err:.3e}; params max |d| {dp_rec['param_max_abs']:.3e}"
+          f", apart by > 1e-6 {dp_rec['param_share_apart']:.4%}; params "
+          f"bit-equal across ranks {dp_rec['ranks_equal']}; "
+          + ", ".join(f"{r['dp_s']:.3f}" for r in ranks)
+          + " s per rank (correctness check, not a speed figure)",
+          flush=True)
+    if not dp_rec["ranks_equal"]:
+        fail("data-parallel parameters differ across ranks")
+    if not (dp_rec["loss_rel"] <= DP_LOSS_RTOL
+            and g_err <= DP_GRAD_REL_L2
+            and dp_rec["param_max_abs"] <= DP_PARAM_ATOL
+            and dp_rec["param_share_apart"] <= DP_FLIP_SHARE):
+        fail(f"the data-parallel step strays from the single step: {dp_rec}")
+    return dp_rec
+
+
 def main():
     import torch
 
@@ -3518,6 +4020,15 @@ def main():
     record["scale"] = scale_path(train_dir, val_dir,
                                  record["train"]["step_s"])
     shutil.rmtree(WORK, ignore_errors=True)
+
+    phase("codecs: the slice codecs and ratios on the 256^3 pair")
+    gloo = start_gloo_ranks(img, patch, batch, train_dir)
+    record["codecs"] = codec_path(img, out)
+
+    phase("multi-GPU: two processes over gloo, then NCCL at world size 1")
+    record["multi_gpu"] = mgpu = multi_gpu_path(gloo, img, patch, batch,
+                                                train_dir, val_dir)
+    shutil.rmtree(WORK, ignore_errors=True)
     shutil.rmtree(CACHES, ignore_errors=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3645,7 +4156,11 @@ def main():
     # predict and summary).
     # Phase 22: the fused matcher's launches in the live precompute() run.
     # Phase 23: rows 1-3 and 6 in the counted (longer) train() run of the
-    # streamed and of the sharded path.
+    # streamed and of the sharded path. Phase 25: row 1-2's launches in the
+    # sharded predicts of the 256^3 block (both stitch branches; over the
+    # two gloo ranks, then at world size 1 over NCCL), rows 1-3 in the
+    # train(data_parallel=True) run, rows 4-5 in bm4d_sharded (two gloo
+    # ranks, then world size 1).
     demo = record["demo"]["launches"]
     n2v = record["n2v"]["launches"]
     scale = record["scale"]
@@ -3667,6 +4182,19 @@ def main():
         if k["name"] in ("nb_conv3d", "nb_conv3d_dw"):
             d = record["n2v"]["conv" if k["name"] == "nb_conv3d" else "dw"]
             k["n2v_step"] = per_step(d["recs"], d["counts"])
+        if k["name"] == "nb_conv3d (inference path)":
+            k["sharded_launches"] = {
+                "gloo_2_ranks": sum(r[f"{b}_launches"] for r in mgpu[
+                    "gloo"]["ranks"] for b in ("canvas", "scatter")),
+                "nccl_world_1": sum(mgpu["nccl"][b]["launches"]
+                                    for b in ("canvas", "scatter"))}
+        if k["name"] in ("nb_conv3d", "nb_conv3d_dw"):
+            k["dp_launches"] = mgpu["nccl"]["train"]["launches"][k["name"]]
+        if key == "match_topk":
+            k["sharded_launches"] = {
+                "gloo_2_ranks": sum(r["bm4d_launches"]
+                                    for r in mgpu["gloo"]["ranks"]),
+                "nccl_world_1": mgpu["nccl"]["bm4d_launches"]}
         if k["name"] == "nb_conv3d (inference path)":
             k["reference_launches"] = imported
             ref = record["reference"]

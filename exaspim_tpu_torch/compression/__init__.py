@@ -1,5 +1,5 @@
-"""Blosc-zstd chunked compression ratio (the product metric) and its
-device-side proxy."""
+"""Chunked codecs, the blosc-zstd compression ratio (the product metric),
+the slice codecs' ratios and the device-side proxy."""
 
 from exaspim_tpu_torch.compression.blosc import (
     BloscCodec,
@@ -7,14 +7,34 @@ from exaspim_tpu_torch.compression.blosc import (
     best_codec,
     blosc_available,
 )
-from exaspim_tpu_torch.compression.cratio import compute_cratio
+from exaspim_tpu_torch.compression.cratio import (
+    compress_and_decompress_2d,
+    compute_cratio,
+    compute_cratio_2d,
+    compute_cratio_jpegxl,
+)
+from exaspim_tpu_torch.compression.jpeg import (
+    Jpeg2000SliceCodec,
+    JpegSliceCodec,
+    PngSliceCodec,
+)
+from exaspim_tpu_torch.compression.jxl import JxlSliceCodec
+from exaspim_tpu_torch.compression.jxl import available as jxl_available
 from exaspim_tpu_torch.compression.proxy import cratio_proxy
 
 __all__ = [
     "BloscCodec",
+    "Jpeg2000SliceCodec",
+    "JpegSliceCodec",
+    "JxlSliceCodec",
+    "PngSliceCodec",
+    "jxl_available",
     "ZstdShuffleCodec",
     "best_codec",
     "blosc_available",
     "compute_cratio",
+    "compute_cratio_2d",
+    "compute_cratio_jpegxl",
+    "compress_and_decompress_2d",
     "cratio_proxy",
 ]

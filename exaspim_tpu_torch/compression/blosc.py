@@ -2,9 +2,10 @@
 
 Copy of the binding in ``exaspim_tpu/compression/blosc.py``: the same C
 library and the same ``blosc_compress_ctx`` parameters, so chunked
-compression ratios are byte-for-byte those of the reference. There is no
-fallback codec: where ``libblosc`` is missing, :func:`blosc_available`
-says so and the caller reports the ratio as unavailable.
+compression ratios are byte-for-byte those of the reference, and streams
+decode with ``blosc_decompress_ctx``. Where ``libblosc`` is missing,
+:func:`blosc_available` says so and :func:`best_codec` takes
+:class:`ZstdShuffleCodec` (``zstandard``), the reference's fallback.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ __all__ = [
     "ZstdShuffleCodec",
     "best_codec",
     "blosc_available",
+    "byteshuffle",
+    "unbyteshuffle",
     "SHUFFLE",
 ]
 
@@ -50,6 +53,17 @@ def _load_blosc():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
             ]
+            lib.blosc_decompress_ctx.restype = ctypes.c_int
+            lib.blosc_decompress_ctx.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_int,
+            ]
+            lib.blosc_cbuffer_sizes.argtypes = [
+                ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_size_t),
+            ]
             _lib = lib
             return _lib
         raise OSError("libblosc shared library not found")
@@ -65,7 +79,7 @@ def blosc_available():
 
 
 class BloscCodec:
-    """Blosc compressor with ``numcodecs.Blosc`` encode semantics
+    """Blosc codec with ``numcodecs.Blosc`` encode/decode semantics
     (the reference's ``Blosc(cname="zstd", clevel=6, shuffle=SHUFFLE)``)."""
 
     def __init__(self, cname="zstd", clevel=6, shuffle=SHUFFLE, nthreads=1):
@@ -76,18 +90,32 @@ class BloscCodec:
         self._lib = _load_blosc()
 
     def encode(self, buf):
-        """Compress a numpy array; returns ``bytes``."""
-        arr = np.ascontiguousarray(buf)
-        raw = arr.tobytes()
+        """Compress a numpy array (its item size is blosc's type size) or
+        bytes (type size 1); returns ``bytes``."""
+        raw, typesize = _raw_bytes(buf, 1)
         dest = ctypes.create_string_buffer(len(raw) + _MAX_OVERHEAD)
         n = self._lib.blosc_compress_ctx(
-            self.clevel, self.shuffle, arr.dtype.itemsize, len(raw), raw,
+            self.clevel, self.shuffle, typesize, len(raw), raw,
             dest, len(raw) + _MAX_OVERHEAD, self.cname.encode(), 0,
             self.nthreads,
         )
         if n <= 0:
             raise RuntimeError(f"blosc compression failed (rc={n})")
         return dest.raw[:n]
+
+    def decode(self, data):
+        """Decompress a blosc stream; returns ``bytes``."""
+        data = bytes(data)
+        nbytes, cbytes, blocksize = (ctypes.c_size_t() for _ in range(3))
+        self._lib.blosc_cbuffer_sizes(data, ctypes.byref(nbytes),
+                                      ctypes.byref(cbytes),
+                                      ctypes.byref(blocksize))
+        out = ctypes.create_string_buffer(nbytes.value)
+        m = self._lib.blosc_decompress_ctx(data, out, nbytes.value,
+                                           self.nthreads)
+        if m != nbytes.value:
+            raise RuntimeError(f"blosc decompression failed (rc={m})")
+        return out.raw
 
     @property
     def config(self):
@@ -100,11 +128,27 @@ class BloscCodec:
         }
 
 
+def _raw_bytes(buf, typesize):
+    """``(bytes, type size)`` of a numpy array (its item size) or of a
+    bytes-like object (``typesize``)."""
+    if isinstance(buf, np.ndarray):
+        arr = np.ascontiguousarray(buf)
+        return arr.tobytes(), arr.dtype.itemsize
+    return bytes(buf), typesize
+
+
 def byteshuffle(raw, typesize):
     """Blosc-style byte transposition: groups byte k of every element."""
     arr = np.frombuffer(raw, dtype=np.uint8)
     n = arr.size // typesize
     return arr[: n * typesize].reshape(n, typesize).T.copy().tobytes()
+
+
+def unbyteshuffle(raw, typesize):
+    """Inverse of :func:`byteshuffle`."""
+    arr = np.frombuffer(raw, dtype=np.uint8)
+    n = arr.size // typesize
+    return arr.reshape(typesize, n).T.copy().tobytes()
 
 
 class ZstdShuffleCodec:
@@ -119,19 +163,22 @@ class ZstdShuffleCodec:
         self.shuffle = int(shuffle)
         self.typesize = int(typesize)
         self._c = zstandard.ZstdCompressor(level=self.clevel)
+        self._d = zstandard.ZstdDecompressor()
 
     def encode(self, buf):
-        if isinstance(buf, np.ndarray):
-            arr = np.ascontiguousarray(buf)
-            typesize = arr.dtype.itemsize
-            raw = arr.tobytes()
-        else:
-            raw = bytes(buf)
-            typesize = self.typesize
+        raw, typesize = _raw_bytes(buf, self.typesize)
         if self.shuffle == SHUFFLE and typesize > 1:
             raw = byteshuffle(raw, typesize)
-        # typesize + shuffle byte first, as the reference writes them
+        # typesize + shuffle byte first, so decode can invert
         return bytes([typesize, self.shuffle]) + self._c.compress(raw)
+
+    def decode(self, data):
+        data = bytes(data)
+        typesize, shuffle = data[0], data[1]
+        raw = self._d.decompress(data[2:])
+        if shuffle == SHUFFLE and typesize > 1:
+            raw = unbyteshuffle(raw, typesize)
+        return raw
 
     @property
     def config(self):

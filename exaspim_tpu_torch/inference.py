@@ -5,7 +5,11 @@ overlapping cubic patches (stride ``patch − overlap``); each batch of
 patches goes through the model; ``trim`` voxels are dropped from patch
 faces that do not touch the volume edge; the overlapping predictions are
 weight-averaged with the reference's parity-canvas stitch; the frozen
-transform maps back to counts.
+transform maps back to counts. Where ``patch > 2·stride`` the parity
+decomposition does not hold, and the patches are added one by one in
+start order instead (:func:`tiled_accumulate`, the stitch of the JAX
+package's sharded path; its single-device ``predict`` refuses such
+geometries).
 
 The whole datapath runs on ``device`` (the card unless the caller passes
 ``device="cpu"``): the raw block is uploaded once, and only the final
@@ -26,6 +30,7 @@ __all__ = [
     "plan_tiling",
     "plan_stream_cores",
     "trim_weight_mask",
+    "tiled_accumulate",
     "build_tiled_program",
     "build_volume_transform",
 ]
@@ -103,13 +108,78 @@ def trim_weight_mask(global_start, patch, trim, global_shape, device="cuda"):
     return w
 
 
-def _parity_canvas(blocks, grid_dims, stride, patch, vol_shape):
+def _pad_starts(starts, batch):
+    """``starts`` tail-padded to whole batches by repeating its last row."""
+    n_pad = (-len(starts)) % batch
+    if n_pad:
+        starts = np.concatenate([starts, np.repeat(starts[-1:], n_pad, 0)])
+    return starts
+
+
+def _patch_batches(model, x, starts, global_starts, global_shape, patch,
+                   batch, trim, clip=None):
+    """Forward the patches of ``x`` at ``starts`` in batches of ``batch``
+    (the last one filled by repeating the final start; the repeats are
+    dropped). Yields, per batch, ``(starts, pred · mask, mask)`` in f32,
+    with the trim masks taken at ``global_starts`` in the whole volume of
+    ``global_shape`` and each prediction clamped to ``clip`` (``(lo,
+    hi)``) when given."""
+    P = patch
+    n = len(starts)
+    starts = _pad_starts(np.asarray(starts), batch)
+    global_starts = _pad_starts(np.asarray(global_starts), batch)
+    for i in range(0, len(starts), batch):
+        sb = starts[i:i + batch]
+        patches = torch.stack([
+            x[z:z + P, y:y + P, w:w + P] for z, y, w in sb.tolist()
+        ])
+        pred = model(patches[..., None])[..., 0].float()
+        if clip is not None:
+            pred = torch.clamp(pred, *clip)
+        mask = torch.stack([
+            trim_weight_mask(g, P, trim, global_shape, x.device)
+            for g in global_starts[i:i + batch]
+        ])
+        keep = min(batch, n - i)
+        yield sb[:keep], (pred * mask)[:keep], mask[:keep]
+
+
+def tiled_accumulate(model, vol, starts, global_starts, global_shape, patch,
+                     batch, trim, clip=None):
+    """Masked overlap-add of the patches at ``starts``: f32 ``(accum, wgt)``
+    shaped like ``vol``.
+
+    Counterpart of ``exaspim_tpu/inference.py:144``, for any geometry
+    (``patch > 2·stride`` included). ``starts`` index ``vol`` (local
+    coordinates); ``global_starts`` are the same patches in the whole
+    volume of ``global_shape``, for the boundary-aware trim. The patches
+    are added one by one in the order of ``starts``, so each voxel sums its
+    contributions in a fixed order: a shard that walks the patches over
+    its core in global start order reproduces the single-device sums bit
+    for bit (no float atomics).
+    """
+    accum = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+    wgt = torch.zeros_like(accum)
+    P = patch
+    for sb, pred, mask in _patch_batches(model, vol, starts, global_starts,
+                                         global_shape, patch, batch, trim,
+                                         clip):
+        for (z, y, x), p, m in zip(sb.tolist(), pred, mask):
+            accum[z:z + P, y:y + P, x:x + P] += p
+            wgt[z:z + P, y:y + P, x:x + P] += m
+    return accum, wgt
+
+
+def _parity_canvas(blocks, grid_dims, stride, patch, vol_shape, z_parity=0):
     """Dense overlap-add of a uniform patch grid (``start = index·stride``).
 
     Patches at equal grid parities are disjoint when ``patch ≤ 2·stride``,
     so the sum splits into 8 parity groups, each laid out by pad /
     permute / reshape and added at a static shift — the reference's
-    algorithm and summation order (``inference.py:194``).
+    algorithm and summation order (``inference.py:194``). ``z_parity`` is
+    the parity of row 0 in a larger grid (a shard's slice of the global
+    grid): the groups are added in the global grid's parity order, so a
+    voxel sums its terms in the single-device order.
     """
     nz, ny, nx = grid_dims
     P, s = patch, stride
@@ -120,7 +190,7 @@ def _parity_canvas(blocks, grid_dims, stride, patch, vol_shape):
         )
     blocks = blocks.reshape(nz, ny, nx, P, P, P)
     out = torch.zeros(vol_shape, dtype=blocks.dtype, device=blocks.device)
-    for a in range(min(2, nz)):
+    for a in sorted(range(min(2, nz)), key=lambda a: (a + z_parity) % 2):
         for b in range(min(2, ny)):
             for c in range(min(2, nx)):
                 sub = blocks[a::2, b::2, c::2]
@@ -172,37 +242,31 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
     padded = tuple(
         max(int(starts[:, d].max()) + patch_size, shape[d]) for d in range(3)
     )
-    n_pad = (-len(starts)) % batch_size
-    if n_pad:
-        starts = np.concatenate([starts, np.repeat(starts[-1:], n_pad, 0)])
+    starts = _pad_starts(starts, batch_size)
     P = patch_size
 
     def program(raw, starts):
         x = transform.forward(raw)
+        clip = output_clip
         if output_clip == "input":
-            clip_lo, clip_hi = x.min(), x.max()
-        elif output_clip is not None:
-            clip_lo, clip_hi = output_clip
+            clip = (x.min(), x.max())
         x = F.pad(x, [0, padded[2] - shape[2], 0, padded[1] - shape[1],
                       0, padded[0] - shape[0]])
-        preds, masks = [], []
-        for i in range(0, len(starts), batch_size):
-            sb = starts[i:i + batch_size]
-            patches = torch.stack([
-                x[z:z + P, y:y + P, w:w + P] for z, y, w in sb.tolist()
-            ])
-            pred = model(patches[..., None])[..., 0].float()
-            if output_clip is not None:
-                pred = torch.clamp(pred, clip_lo, clip_hi)
-            mask = torch.stack([
-                trim_weight_mask(st, P, trim, shape, x.device) for st in sb
-            ])
-            preds.append(pred * mask)
-            masks.append(mask)
-        preds = torch.cat(preds)[:n_grid]
-        masks = torch.cat(masks)[:n_grid]
-        accum = _parity_canvas(preds, grid_dims, stride, P, padded)
-        wgt = _parity_canvas(masks, grid_dims, stride, P, padded)
+        starts = starts[:n_grid]
+        if P > 2 * stride:
+            accum, wgt = tiled_accumulate(model, x, starts, starts, shape, P,
+                                          batch_size, trim, clip)
+        else:
+            preds, masks = [], []
+            for _, pred, mask in _patch_batches(model, x, starts, starts,
+                                                shape, P, batch_size, trim,
+                                                clip):
+                preds.append(pred)
+                masks.append(mask)
+            accum = _parity_canvas(torch.cat(preds), grid_dims, stride, P,
+                                   padded)
+            wgt = _parity_canvas(torch.cat(masks), grid_dims, stride, P,
+                                 padded)
         out = (accum / (wgt + 1e-8))[:shape[0], :shape[1], :shape[2]]
         if return_float:
             return transform.inverse_float(out)

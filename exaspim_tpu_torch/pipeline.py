@@ -24,9 +24,28 @@ import threading
 import numpy as np
 
 from exaspim_tpu_torch.inference import plan_stream_cores, plan_tiling, predict
+from exaspim_tpu_torch.parallel.multihost import is_primary
 from exaspim_tpu_torch.utils import img_io
 
 __all__ = ["denoise_volume"]
+
+
+def _predict_on_mesh(block, model, transform, mesh, patch_size, overlap,
+                     trim, batch_size):
+    """:func:`predict_sharded` of one super-tile: a z extent that does not
+    split into one ``patch_size`` core per rank is edge-padded up to the
+    larger of ``n · patch_size`` and the next multiple of ``n``, and the
+    result cropped back (JAX ``pipeline.py:171-186``)."""
+    from exaspim_tpu_torch.parallel.spatial import predict_sharded
+
+    n = mesh.size()
+    zb = block.shape[0]
+    pad = max(n * patch_size, zb + (-zb) % n) - zb
+    if pad:
+        block = np.pad(block, [(0, pad), (0, 0), (0, 0)], mode="edge")
+    return predict_sharded(block, model, transform, mesh,
+                           patch_size=patch_size, overlap=overlap, trim=trim,
+                           batch_size=batch_size)[:zb]
 
 
 def _tile_plan(shape, cores, halo, stride):
@@ -69,13 +88,15 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
     whose single plane times the slab height exceeds device memory still
     stream. Seams are exact either way.
 
-    ``mesh`` (the reference's multi-chip engine) belongs to the multi-GPU
-    slice and raises ``NotImplementedError``.
+    With a 1-D ``mesh`` (:func:`~exaspim_tpu_torch.parallel.make_mesh`)
+    every rank calls this with the same arguments and each super-tile is
+    z-sharded over the ranks
+    (:func:`~exaspim_tpu_torch.parallel.predict_sharded`); a tile whose z
+    extent does not split into one ``patch_size`` core per rank is
+    edge-padded first and cropped after, as in the JAX package. Every rank
+    returns the assembled volume; only the primary rank writes
+    ``output_path``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "denoise_volume(mesh=...) is the multi-GPU path "
-            "(parallel/spatial.py predict_sharded), which is not ported yet")
     src = img_io.read(img) if isinstance(img, str) else img
     shape = tuple(int(d) for d in src.shape[-3:])
     Z, Y, X = shape
@@ -97,11 +118,12 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
         cores = (slab_z, Y, X)
     plan = _tile_plan(shape, cores, halo, patch_size - overlap)
 
+    primary = mesh is None or is_primary()
     out_arr = None
     out_store = None
     if output_path is None:
         out_arr = np.empty(shape, np.uint16)
-    else:
+    elif primary:
         import tensorstore as ts
 
         spec = {
@@ -173,11 +195,15 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
                 raise item
             tile, block = item
             (z0, z1, lo, _), (y0, y1, loy, _), (x0, x1, lox, _) = tile
-            res = predict(
-                block, model, transform, patch_size=patch_size,
-                overlap=overlap, trim=trim, batch_size=batch_size,
-                device=device,
-            )
+            if mesh is not None:
+                res = _predict_on_mesh(block, model, transform, mesh,
+                                       patch_size, overlap, trim, batch_size)
+            else:
+                res = predict(
+                    block, model, transform, patch_size=patch_size,
+                    overlap=overlap, trim=trim, batch_size=batch_size,
+                    device=device,
+                )
             core = res[
                 z0 - lo:z0 - lo + (z1 - z0),
                 y0 - loy:y0 - loy + (y1 - y0),
@@ -185,7 +211,7 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
             ]
             if out_arr is not None:
                 out_arr[z0:z1, y0:y1, x0:x1] = core
-            else:
+            elif primary:
                 pending_writes.append(
                     out_store[0, 0, z0:z1, y0:y1, x0:x1].write(core)
                 )

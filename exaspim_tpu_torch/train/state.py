@@ -115,13 +115,19 @@ def _mask(fg):
     return fg.to(torch.float32) if isinstance(fg, torch.Tensor) else fg
 
 
-def _update(state, x, y, fg, fg_weight, eps):
+def _update(state, x, y, fg, fg_weight, eps, reduce=None):
+    """Forward, loss, backward and the AdamW update; ``reduce(model,
+    loss)`` (the data-parallel step's) may replace the gradients and
+    return the loss to report before the update."""
     pred = state.model(x)
     loss = signal_preserving_loss(pred, y, _mask(fg), fg_weight=fg_weight,
                                   eps=eps)
     loss.backward()
+    loss = loss.detach()
+    if reduce is not None:
+        loss = reduce(state.model, loss)
     state.apply_gradients()
-    return state, loss.detach()
+    return state, loss
 
 
 def make_train_step(fg_weight=20.0, eps=1e-3, transform=None):

@@ -15,9 +15,20 @@ Usage (on the card):
 file that drives the run as in the JAX script: its fields replace the
 training flags, which are then ignored. The port's own flags
 (``--exact-cratio-examples``, ``--device``) still apply.
-``--data-parallel`` raises (multi-GPU training is not ported).
 ``--exact-cratio-examples 0`` skips the exact host cratio where neither
 libblosc nor ``zstandard`` is installed.
+
+``--data-parallel`` trains over every process of the job, one device
+each (:mod:`exaspim_tpu_torch.parallel`): launch it with ``torchrun``,
+whose environment :func:`~exaspim_tpu_torch.parallel.initialize_multihost`
+reads (NCCL on the card, gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node 4 -m exaspim_tpu_torch.train.train_bm4dnet \
+        --data-parallel --train-cache /c/train --val-cache /c/val --out /r
+
+The global batch (``--batch-size``) splits evenly over the processes;
+only rank 0 writes checkpoints and logs. A plain run with
+``--data-parallel`` is a world of one.
 """
 
 from __future__ import annotations
@@ -51,10 +62,15 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
           device_cache_budget=8 << 30, augment=False, full_state_every=1,
           exact_cratio_examples=16, log_every=50, device="cuda"):
     """Run cache-only training; returns the Trainer (its ``state`` holds
-    the final train state)."""
+    the final train state). ``data_parallel`` joins the job's process
+    group (:func:`~exaspim_tpu_torch.parallel.initialize_multihost`; a
+    no-op solo) and trains over a mesh of all its ranks."""
+    mesh = None
     if data_parallel:
-        raise NotImplementedError(
-            "data-parallel training comes with the multi-GPU slice")
+        from exaspim_tpu_torch.parallel import initialize_multihost, make_mesh
+
+        initialize_multihost(device=device)
+        mesh = make_mesh(axis="data", device=device)
     train_cache, val_cache = list(train_cache), list(val_cache)
     transform = build_transform(load_cache_transform(train_cache + val_cache))
     train_ds = CachedPatchDataset(train_cache)
@@ -80,7 +96,7 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
         device_cache=device_cache, device_cache_budget=device_cache_budget,
         exact_cratio_examples=exact_cratio_examples, augment=augment,
         full_state_every=full_state_every, log_every=log_every,
-        device=device,
+        mesh=mesh, device=device,
     )
     trainer.save_config({
         "train_cache": train_cache,

@@ -31,8 +31,19 @@ predictions (``session_dir/mips``), and with ``tensorboard`` the scalars
 skipped with one message on stderr). ``val_device_metrics=False`` scores
 each example on the host with
 :func:`~exaspim_tpu_torch.ops.metrics.evaluate_example` instead (the
-oracle path). The data-parallel (mesh) step comes with the multi-GPU
-slice. The exact cratio needs libblosc or ``zstandard``; without either,
+oracle path).
+
+With a ``mesh`` (:func:`~exaspim_tpu_torch.parallel.make_mesh`, one
+process per device) training is data-parallel, as the JAX package's
+``Trainer(mesh=)``: every rank draws the same global batch stream from
+the seed, takes its contiguous share and steps with the gradients
+all-reduced to the global mean
+(:func:`~exaspim_tpu_torch.parallel.make_dp_train_step`); the parameters
+are broadcast from rank 0 at the start and stay equal on every rank.
+Batches stream through the loader (``device_cache=True`` with a mesh
+raises). Only the primary rank validates and writes checkpoints, logs,
+MIPs and TensorBoard scalars. The exact cratio needs libblosc or
+``zstandard``; without either,
 pass ``exact_cratio_examples=0`` and ``val_cratio`` is 0.0, as the
 reference reports it when no example was measured.
 """
@@ -47,6 +58,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from exaspim_tpu_torch.compression import best_codec, compute_cratio
 from exaspim_tpu_torch.compression.proxy import cratio_proxy_batch
@@ -100,7 +112,8 @@ class Trainer:
                  device_cache="auto", device_cache_budget=8 << 30,
                  exact_cratio_examples=16, augment=False,
                  full_state_every=1, log_every=50, keep_mips=10,
-                 tensorboard=True, val_device_metrics=True, device="cuda"):
+                 tensorboard=True, val_device_metrics=True, mesh=None,
+                 device="cuda"):
         self.model = model
         self.transform = transform
         self.lr = lr
@@ -140,16 +153,21 @@ class Trainer:
         #: proxy); False: every example on the host (the oracle path).
         self.val_device_metrics = bool(val_device_metrics)
         self.device = torch.device(device)
+        #: a 1-D DeviceMesh: data-parallel training over its ranks.
+        self.mesh = mesh
+        #: the rank that validates and writes (every rank without a mesh).
+        self.primary = mesh is None or dist.get_rank() == 0
 
         stamp = datetime.now().strftime("%Y%m%d_%H%M")
         self.output_dir = os.fspath(output_dir)
         self.session_dir = os.path.join(self.output_dir, f"session-{stamp}")
         self.ckpt_dir = os.path.join(self.session_dir, "checkpoints")
         self.mip_dir = os.path.join(self.session_dir, "mips")
-        for d in (self.ckpt_dir, self.mip_dir):
-            os.makedirs(d, exist_ok=True)
+        if self.primary:
+            for d in (self.ckpt_dir, self.mip_dir):
+                os.makedirs(d, exist_ok=True)
         self._writer = None
-        if tensorboard:
+        if tensorboard and self.primary:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError as exc:
@@ -197,8 +215,11 @@ class Trainer:
             )
 
     def save_config(self, extra=None):
-        """Merge the run config into ``session_dir/config.json``."""
+        """Merge the run config into ``session_dir/config.json`` (on the
+        primary rank)."""
         path = os.path.join(self.session_dir, "config.json")
+        if not self.primary:
+            return path
         cfg = {}
         if os.path.exists(path):
             with open(path) as f:
@@ -252,6 +273,13 @@ class Trainer:
         shard a whole number of batches; the budget must hold one)."""
         forced = self.device_cache is True
         if not self.device_cache:
+            return 0
+        if self.mesh is not None:
+            if forced:
+                raise ValueError(
+                    "device_cache=True is incompatible with mesh "
+                    "data-parallel training (the DP step streams sharded "
+                    "host batches); use device_cache='auto' or False")
             return 0
         if not all(hasattr(train_ds, f) for f in ("_raw", "_teacher", "_fg")):
             if forced:
@@ -391,7 +419,18 @@ class Trainer:
                     "resume model_config mismatch: "
                     f"{meta['model_config']} vs {self.model.config}")
             start_step = load_train_state(state, tree).step
-        if use_dev_cache:
+        if self.mesh is not None:
+            from exaspim_tpu_torch.parallel.data_parallel import (
+                make_dp_train_step,
+                replicate_params,
+                shard_batch,
+            )
+
+            replicate_params(self.mesh, self.model)
+            train_step = make_dp_train_step(
+                self.mesh, fg_weight=self.fg_weight, eps=self.loss_eps,
+                transform=self.transform)
+        elif use_dev_cache:
             if self.augment and len(set(patch)) != 1:
                 raise ValueError(
                     f"augment=True requires cubic patches, got {patch}")
@@ -435,7 +474,7 @@ class Trainer:
                     "wall_s": round(time.time() - t0, 1),
                     **stats,
                 })
-            if step % self.val_every == 0:
+            if step % self.val_every == 0 and self.primary:
                 self.validate_and_checkpoint(state, eval_step, val_loader,
                                              step)
 
@@ -488,11 +527,15 @@ class Trainer:
         else:
             for epoch in range(start_epoch, self.epochs):
                 train_loader.set_epoch(epoch)
-                for x, y, fg in prefetch_to_device(train_loader,
+                batches = train_loader
+                if self.mesh is not None:  # this rank's share of each batch
+                    batches = (shard_batch(self.mesh, b)
+                               for b in train_loader)
+                for x, y, fg in prefetch_to_device(batches,
                                                    device=self.device):
                     state, loss = train_step(state, x, y, fg)
                     bookkeep(state, loss, epoch)
-        if step % self.val_every != 0:
+        if step % self.val_every != 0 and self.primary:
             self.validate_and_checkpoint(state, eval_step, val_loader, step)
         if self._writer is not None:
             self._writer.flush()
@@ -632,6 +675,8 @@ class Trainer:
             self._writer.add_scalar(tag, value, step)
 
     def _log(self, record):
+        if not self.primary:
+            return
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record, default=float) + "\n")
 

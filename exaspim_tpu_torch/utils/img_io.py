@@ -12,9 +12,10 @@ Paths are local or cloud URLs (``gs://`` and ``s3://`` open as
 tensorstore's gcs and anonymous s3 kvstores). A neuroglancer
 ``precomputed://`` volume, or any store with an ``info`` file and no Zarr
 metadata (probed with one ``<prefix>/info`` lookup through fsspec for a
-URL), opens as a lazy (z, y, x) view. JPEG-XL-coded Zarr stores raise
-``NotImplementedError``: they come with the codec slice
-(``compression/jxl.py``).
+URL), opens as a lazy (z, y, x) view. A Zarr v2 store coded with
+``imagecodecs_jpegxl`` (tensorstore has no JPEG-XL codec) opens as a
+:class:`JxlZarrArray`, which decodes its chunks through the package's
+libjxl binding (:mod:`exaspim_tpu_torch.compression.jxl`).
 
 The patch bounds check uses ``all``: every axis must be in range.
 """
@@ -27,6 +28,7 @@ import os
 import numpy as np
 
 __all__ = [
+    "JxlZarrArray",
     "read",
     "as_5d",
     "get_patch",
@@ -96,12 +98,10 @@ def read(path, dataset=None):
         try:
             return _open_ts({"driver": "zarr", "kvstore": _kvstore(p)})
         except Exception:
-            if _is_jxl_zarr(p):
-                raise NotImplementedError(
-                    "the JPEG-XL-coded Zarr reader is not ported yet: it "
-                    "comes with the codec slice (compression/jxl.py); got "
-                    f"{p!r}") from None
-            raise
+            arr = _maybe_jxl_zarr(p)
+            if arr is None:
+                raise
+            return arr
 
 
 def _is_neuroglancer_precomputed(path):
@@ -139,12 +139,116 @@ def _store_bytes(path):
         return f.read()
 
 
-def _is_jxl_zarr(path):
+def _maybe_jxl_zarr(path):
+    """A lazy :class:`JxlZarrArray` when ``path`` is a Zarr v2 array
+    compressed with the ``imagecodecs_jpegxl`` codec, else None (the
+    reference registers imagecodecs' codec with zarr, reference
+    img_util.py:170)."""
     raw = _store_bytes(f"{path}/.zarray")
     if raw is None:
-        return False
-    comp = json.loads(raw).get("compressor") or {}
-    return comp.get("id") == "imagecodecs_jpegxl"
+        return None
+    meta = json.loads(raw)
+    if (meta.get("compressor") or {}).get("id") != "imagecodecs_jpegxl":
+        return None
+    return JxlZarrArray(path, meta)
+
+
+class JxlZarrArray:
+    """Lazy Zarr v2 reader for ``imagecodecs_jpegxl``-coded stores
+    (grayscale uint8/uint16 chunks, C order, no filters).
+
+    Each chunk decodes through
+    :func:`~exaspim_tpu_torch.compression.jxl.jxl_decode` (one frame per
+    leading slice, as ``imagecodecs.jpegxl_encode`` writes an N-D chunk).
+    ``shape``, ``dtype``, ``ndim``, ``len`` and basic slicing (integers and
+    unit-step slices, one ``...``) return numpy arrays; a missing chunk
+    reads as ``fill_value``.
+    """
+
+    def __init__(self, path, meta=None):
+        self.path = str(path).rstrip("/")
+        if meta is None:
+            raw = _store_bytes(f"{self.path}/.zarray")
+            if raw is None:
+                raise FileNotFoundError(f"no .zarray under {path}")
+            meta = json.loads(raw)
+        if meta.get("zarr_format") != 2:
+            raise ValueError("JxlZarrArray reads zarr v2 arrays only")
+        if meta.get("filters"):
+            raise ValueError("filters are not supported for jxl zarrs")
+        if meta.get("order", "C") != "C":
+            raise ValueError("only C-order jxl zarrs are supported")
+        self.shape = tuple(int(s) for s in meta["shape"])
+        self.chunks = tuple(int(c) for c in meta["chunks"])
+        self.dtype = np.dtype(meta["dtype"])
+        self.fill_value = meta.get("fill_value") or 0
+        self._sep = meta.get("dimension_separator", ".")
+
+    def __len__(self):
+        return self.shape[0]
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def _chunk(self, idx):
+        """Chunk ``idx`` (grid coordinates), full chunk shape."""
+        from exaspim_tpu_torch.compression.jxl import jxl_decode
+
+        raw = _store_bytes(
+            f"{self.path}/{self._sep.join(str(i) for i in idx)}")
+        if raw is None:
+            return np.full(self.chunks, self.fill_value, self.dtype)
+        return np.ascontiguousarray(
+            jxl_decode(raw, dtype=self.dtype)).reshape(self.chunks)
+
+    def _bounds(self, key):
+        """Per axis ``(lo, hi)`` of a basic index, and the integer axes."""
+        if not isinstance(key, tuple):
+            key = (key,)
+        if any(k is Ellipsis for k in key):
+            i = key.index(Ellipsis)
+            key = (key[:i] + (slice(None),) * (self.ndim - len(key) + 1)
+                   + key[i + 1:])
+        key = key + (slice(None),) * (self.ndim - len(key))
+        squeeze, bounds = [], []
+        for ax, k in enumerate(key):
+            if isinstance(k, (int, np.integer)):
+                k = int(k) + (self.shape[ax] if k < 0 else 0)
+                if not 0 <= k < self.shape[ax]:
+                    raise IndexError(f"index {k} out of range on axis {ax}")
+                squeeze.append(ax)
+                bounds.append((k, k + 1))
+            elif isinstance(k, slice):
+                lo, hi, step = k.indices(self.shape[ax])
+                if step != 1:
+                    raise IndexError("strided reads are not supported")
+                bounds.append((lo, max(lo, hi)))
+            else:
+                raise IndexError(f"unsupported index {k!r}")
+        return bounds, squeeze
+
+    def __getitem__(self, key):
+        import itertools
+
+        bounds, squeeze = self._bounds(key)
+        out = np.full(tuple(hi - lo for lo, hi in bounds), self.fill_value,
+                      self.dtype)
+        grids = [range(lo // c, max(lo // c + 1, -(-hi // c)))
+                 for (lo, hi), c in zip(bounds, self.chunks)]
+        for idx in itertools.product(*grids):
+            src, dst = [], []
+            for g, c, (lo, hi) in zip(idx, self.chunks, bounds):
+                c0 = g * c
+                s_lo, s_hi = max(lo, c0), min(hi, c0 + c)
+                if s_lo >= s_hi:
+                    break
+                src.append(slice(s_lo - c0, s_hi - c0))
+                dst.append(slice(s_lo - lo, s_hi - lo))
+            else:
+                out[tuple(dst)] = self._chunk(idx)[tuple(src)]
+        return out.reshape(tuple(
+            s for ax, s in enumerate(out.shape) if ax not in squeeze))
 
 
 def _read_tiff(path):

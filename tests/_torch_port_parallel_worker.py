@@ -1,0 +1,156 @@
+"""One rank of the port's multi-rank CPU checks (2 gloo ranks).
+
+``tests/test_torch_port_parallel.py`` writes a job directory (inputs as
+``job.npz``, settings as ``job.json``, a JAX-written checkpoint and
+caches) and starts :func:`run` in two processes with the ``spawn`` method.
+Each rank joins a gloo group on the CPU, runs the port's sharded paths on
+the same inputs and writes its results to ``rank<r>.npz``; rank 0 also
+runs the single-device references. This module imports torch and the port
+only, never JAX.
+"""
+
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def _model(ckpt):
+    from exaspim_tpu_torch.models import build_model
+    from exaspim_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        params_from_flax,
+    )
+
+    c = load_checkpoint(ckpt)
+    model = build_model(c["model_config"], dtype=torch.float32, device="cpu")
+    model.load_state_dict(params_from_flax(c["params"]))
+    return model, c["params"]
+
+
+def _flat(model):
+    return torch.cat([p.detach().reshape(-1)
+                      for p in model.parameters()]).numpy()
+
+
+def run(rank, world, port, job_dir):
+    torch.set_num_threads(2)
+    import torch.distributed as dist
+
+    from exaspim_tpu_torch import parallel as par
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.ops.bm4d import bm4d
+    from exaspim_tpu_torch.train.state import (
+        create_train_state,
+        make_train_step,
+    )
+    from exaspim_tpu_torch.transforms import build_transform
+
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    data = dict(np.load(os.path.join(job_dir, "job.npz")))
+    out = {}
+    assert par.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", device="cpu")
+    assert par.initialize_multihost() is True  # a second call is ignored
+    mesh = par.make_mesh(axis="z", device="cpu")
+    out["is_primary"] = np.array(par.is_primary())
+    try:
+        par.make_mesh(world + 1, device="cpu")
+    except ValueError:
+        out["mesh_too_large_raises"] = np.array(True)
+
+    # Sharded predict, both stitch branches, against one predict.
+    model, _ = _model(job["predict_ckpt"])
+    t = build_transform(job["tcfg"])
+    img = data["img"]
+    for name, kw in job["predict"].items():
+        for ret in (False, True):
+            key = f"{name}_{'float' if ret else 'u16'}"
+            out[f"sharded_{key}"] = par.predict_sharded(
+                img, model, t, mesh, return_float=ret, **kw)
+            if rank == 0:
+                out[f"single_{key}"] = predict(img, model, t, device="cpu",
+                                               return_float=ret, **kw)
+
+    # denoise_volume over the mesh against the unsharded stream.
+    from exaspim_tpu_torch.pipeline import denoise_volume
+
+    # Two super-tiles of 40 planes each (z 0-40 around the cores 0-24 and
+    # 24-40): each splits into two cores of at least one patch, unpadded.
+    pipe = dict(slab_z=24, patch_size=16, overlap=4, trim=2, batch_size=4,
+                device="cpu")
+    out["pipeline_mesh"] = denoise_volume(img, model, t, mesh=mesh, **pipe)
+    if rank == 0:
+        out["pipeline_single"] = denoise_volume(img, model, t, **pipe)
+
+    # Sharded BM4D against BM4D of the reflect-extended volume.
+    vol, b = data["bm4d_vol"], job["bm4d"]
+    for matcher in ("kernel", "dense"):
+        out[f"bm4d_{matcher}"] = par.bm4d_sharded(
+            vol, b["sigma"], mesh, search=b["search"],
+            matcher=matcher).numpy()
+    if rank == 0:
+        halo = par.bm4d_halo(search=b["search"])
+        ext = np.pad(vol, ((halo, halo), (0, 0), (0, 0)), mode="reflect")
+        out["bm4d_oracle"] = bm4d(ext, b["sigma"], search=b["search"],
+                                  device="cpu")[halo:-halo].numpy()
+
+    # One data-parallel step on this rank's share against one step of the
+    # whole batch.
+    dmesh = par.make_mesh(axis="data", device="cpu")
+    d = job["dp"]
+    x, y, fg = (torch.from_numpy(data[k]) for k in ("dp_x", "dp_y", "dp_fg"))
+    dp_model, params = _model(job["ckpt"])
+    state = create_train_state(dp_model, lr=d["lr"],
+                               total_steps=d["total_steps"], params=params)
+    step = par.make_dp_train_step(dmesh, fg_weight=d["fg_weight"])
+    apply, grads = state.apply_gradients, []
+
+    def spy():  # the all-reduced gradient AdamW receives
+        grads.extend(p.grad.reshape(-1).clone()
+                     for p in dp_model.parameters())
+        return apply()
+
+    state.apply_gradients = spy
+    state, loss = step(state, *par.shard_batch(dmesh, (x, y, fg)))
+    out["dp_loss"], out["dp_params"] = loss.numpy(), _flat(dp_model)
+    out["dp_grads"] = torch.cat(grads).numpy()
+    if rank == 0:
+        one, _ = _model(job["ckpt"])
+        st = create_train_state(one, lr=d["lr"], total_steps=d["total_steps"],
+                                params=params)
+        st, l1 = make_train_step(fg_weight=d["fg_weight"])(st, x, y, fg)
+        out["single_loss"], out["single_params"] = l1.numpy(), _flat(one)
+
+    # The Trainer over the mesh: every rank trains, rank 0 writes.
+    from exaspim_tpu_torch.data.cache import (
+        CachedPatchDataset,
+        CachedValidateDataset,
+    )
+    from exaspim_tpu_torch.train.trainer import Trainer
+
+    tr = job["trainer"]
+    tm, _ = _model(job["ckpt"])
+    trainer = Trainer(os.path.join(job_dir, "trainer"), tm,
+                      build_transform(tr["tcfg"]), mesh=dmesh, device="cpu",
+                      tensorboard=False, keep_mips=0, **tr["run"])
+    trainer.load_pretrained_weights(job["ckpt"])
+    try:
+        Trainer(os.path.join(job_dir, "forced"), tm,
+                build_transform(tr["tcfg"]), mesh=dmesh, device="cpu",
+                device_cache=True, tensorboard=False,
+                **tr["run"])._resolve_device_cache(None)
+    except ValueError:
+        out["forced_cache_raises"] = np.array(True)
+    state = trainer.run(CachedPatchDataset(tr["train"]),
+                        CachedValidateDataset(tr["val"]))
+    out["trainer_step"] = np.array(state.step)
+    out["trainer_params"] = _flat(tm)
+    out["trainer_session"] = np.array(trainer.session_dir)
+    out["trainer_primary"] = np.array(trainer.primary)
+
+    np.savez(os.path.join(job_dir, f"rank{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()

@@ -35,14 +35,11 @@ from exaspim_tpu.train.checkpoint import save_checkpoint as jax_save
 from exaspim_tpu_torch import config as port_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PACKAGES = ("", "ops", "data", "train", "models", "compression", "utils")
+PACKAGES = ("", "ops", "data", "train", "models", "compression", "utils",
+            "parallel")
 
 #: reference names whose function is not ported yet (ROADMAP.md §1).
-NOT_PORTED = {
-    "Jpeg2000SliceCodec", "JpegSliceCodec", "PngSliceCodec", "JxlSliceCodec",
-    "jxl_available", "compute_cratio_2d", "compute_cratio_jpegxl",
-    "compress_and_decompress_2d",
-}
+NOT_PORTED = set()
 
 
 def _init(pkg, sub):
@@ -50,18 +47,20 @@ def _init(pkg, sub):
 
 
 def _reference_names(sub):
-    """``{name: module}`` of the reference package's ``__all__``: where
-    each name is imported from (the lazy table at the top level)."""
+    """``{name: (module, attribute)}`` of the reference package's
+    ``__all__``: where each name is imported from and under which name it
+    is defined there (``import available as jxl_available``; the lazy
+    table at the top level)."""
     tree = ast.parse(open(_init("exaspim_tpu", sub)).read())
     origin = {}
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module:
             for a in node.names:
-                origin[a.asname or a.name] = node.module
+                origin[a.asname or a.name] = (node.module, a.name)
         if isinstance(node, ast.Dict):  # the top level's lazy table
             for k, v in zip(node.keys, node.values):
                 if isinstance(v, ast.Tuple):
-                    origin[k.value] = v.elts[0].value
+                    origin[k.value] = (v.elts[0].value, v.elts[1].value)
         if isinstance(node, ast.Assign) and any(
                 getattr(t, "id", None) == "__all__" for t in node.targets):
             names = ast.literal_eval(node.value)
@@ -70,9 +69,11 @@ def _reference_names(sub):
     return {n: origin[n] for n in names}
 
 
-def _defines(module, name):
-    """Whether the port's counterpart of ``module`` exists and defines
-    ``name`` (or re-exports it from a sub-module)."""
+def _defines(origin):
+    """Whether the port's counterpart of the ``(module, attribute)``
+    ``origin`` exists and defines the attribute (or re-exports it from a
+    sub-module)."""
+    module, name = origin
     rel = module.replace("exaspim_tpu", "exaspim_tpu_torch", 1).split(".")
     base = os.path.join(ROOT, *rel)
     path = base + ".py" if os.path.exists(base + ".py") else os.path.join(
@@ -97,8 +98,8 @@ def test_ported_names_are_exported(sub):
     pkg = importlib.import_module(
         "exaspim_tpu_torch" + (f".{sub}" if sub else ""))
     missing, left = [], set()
-    for name, module in _reference_names(sub).items():
-        if _defines(module, name):
+    for name, origin in _reference_names(sub).items():
+        if _defines(origin):
             if name not in pkg.__all__:
                 missing.append(name)
             getattr(pkg, name)
@@ -113,8 +114,8 @@ def test_ported_names_are_exported(sub):
 def test_not_ported_list_is_current():
     left = set()
     for sub in PACKAGES:
-        left |= {n for n, m in _reference_names(sub).items()
-                 if not _defines(m, n)}
+        left |= {n for n, o in _reference_names(sub).items()
+                 if not _defines(o)}
     assert left == NOT_PORTED
 
 

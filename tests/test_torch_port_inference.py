@@ -127,6 +127,8 @@ def _port_files():
             if n.endswith(".py"):
                 yield os.path.join(dirpath, n)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # The worker module the multi-rank tests start in spawned processes.
+    yield os.path.join(ROOT, "tests", "_torch_port_parallel_worker.py")
 
 
 def test_port_imports_no_jax():

@@ -180,10 +180,24 @@ def test_reader_thread_ends_when_the_model_raises():
 
 
 def test_mesh_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tp.denoise_volume(_img(7, (20, 20, 20)), DoublePlusOne(),
-                          build_transform(TCFG), patch_size=16, overlap=4,
-                          trim=2, mesh=object(), device="cpu")
+    """``mesh=`` (ported with the multi-GPU layer) over a one-rank mesh
+    equals the unsharded stream, slab by slab (two ranks:
+    tests/test_torch_port_parallel.py)."""
+    import torch.distributed as dist
+
+    from exaspim_tpu_torch.parallel import make_mesh
+
+    img = _img(7, (40, 20, 20))
+    kw = dict(slab_z=24, patch_size=16, overlap=4, trim=2, device="cpu")
+    want = tp.denoise_volume(img, DoublePlusOne(), build_transform(TCFG),
+                             **kw)
+    mesh = make_mesh(device="cpu")
+    try:
+        got = tp.denoise_volume(img, DoublePlusOne(), build_transform(TCFG),
+                                mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_defaults_follow_the_port_conventions():
