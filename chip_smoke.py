@@ -11,7 +11,9 @@ line:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile all kernels, print the conv's seconds and ptxas report
    (no register spills allowed in the three conv sources: ``nb_conv3d``,
-   ``nb_conv3d_dw``, ``blocked_conv3d``);
+   ``nb_conv3d_dw``, ``blocked_conv3d``); beside them, in a thread, the
+   port's blosc1 codec (``csrc/blosc1_zstd.cpp``, g++, links only
+   ``libzstd.so.1``), and the machine's ``ZSTD_versionString()``;
 3. kernel vs plain: the Hopper conv against its plain PyTorch version on
    the card, at every conv shape of phase 4's path at its own batch (9)
    and at six of its shapes at batch 2, the fixed comparison set
@@ -28,12 +30,13 @@ line:
    its statistics' reduce) show every 3³ conv went through the kernel, and
    the tile plans it ran are exactly those phase 3 checked; then timed
    runs, a profile and a small-input check against the f32 CPU path;
-5. quality: PSNR, SSIM and the blosc-zstd chunked ratio gain against the
-   clean phantom, scored through the port's quality check
-   (``ckpt_quality.score``) and held to the repository's quality guard
-   (no exact codec on the card's machine: PSNR and SSIM); beside it, not in
-   it, the entropy-proxy ratio of noisy and denoised and their gain from
-   one ``chunk_byte_histograms`` launch on the pair;
+5. quality: the exact blosc-zstd chunked ratio gain (the port's blosc1
+   encoder), PSNR and SSIM against the clean phantom, scored through the
+   port's quality check (``ckpt_quality.score``) and held to the
+   repository's whole quality guard (cratio gain >= 1.9, SSIM not lower,
+   PSNR gain >= 8 dB); beside it, not in it, the entropy-proxy ratio of
+   noisy and denoised and their gain from one ``chunk_byte_histograms``
+   launch on the pair;
 6. build (training kernels): the dL/dW and byte-histogram ptxas reports;
    then the synthetic caches of phase 10 (128 train + 32 val 64³ patches,
    seed 42, Gaussian teacher) are written under ``chip_smoke_work/``;
@@ -60,8 +63,9 @@ line:
    must catch;
 10. training path: the port's ``train()`` at the default configuration
     (width 1.0, bf16, batch 32 of 64³, AdamW 1e-3, card-resident cache)
-    for 12 steps with validations at 6 and 12 and the loss read every
-    step; launch counts, loss trend, peak memory, a profile of two steps,
+    for 12 steps with validations at 6 and 12 (each with the exact
+    ``val_cratio`` of 16 examples, which ``val_score`` weighs) and the loss
+    read every step; launch counts, loss trend, peak memory, a profile of two steps,
     the best checkpoint reloaded through ``restore_pipeline`` to denoise a
     48³ block; then the step time over a window: two ``train()`` runs of
     8 and 40 steps at the default ``log_every`` and ``val_every``, their
@@ -108,20 +112,24 @@ line:
     model and with the shipped checkpoint, and two direct runs bit-equal;
     seconds, voxels/s, the device-only block rate, conv and reduce
     launches, the idle share of one streamed run, peak device memory;
-17. evaluation: with an exact codec, ``SupervisedEvaluator.run`` on two
-    128³ crops and ``UnsupervisedEvaluator.run`` on four 64³ voxels;
-    without one, the codec-free half on the same four voxels (BM4D ground
-    truth, ``predict_patch``, SSIM, MAE, L∞); fused matcher launches
-    counted (two per ground truth);
+17. evaluation: ``SupervisedEvaluator.run`` on two 128³ crops and
+    ``UnsupervisedEvaluator.run`` on four 64³ voxels, with their exact
+    ratios; each voxel's BM4D ground truth and prediction (kept as the
+    evaluator makes them) nearer the clean phantom than the noisy patch
+    and compressing better; fused matcher launches counted (two per
+    ground truth);
 18. demo: ``demo_end_to_end.main`` at its defaults (256 train and 16 val
     64³ patches with BM4D teachers, 8 epochs at batch 16, width 1.0, bf16,
     the held-out 128³ block), the loss read every step for the trend
     guard; stage seconds, the summary, the counted launches of
     ``match_topk``, ``nb_conv3d`` (and its reduce), ``nb_conv3d_dw`` and
-    ``chunk_byte_histograms`` during the run, peak device memory. Fails
-    unless the losses are finite and fall, PSNR and SSIM are finite, the
-    proxy gain is finite and above 1, and each of the four kernels
-    launched; the guard's thresholds are not claimed at this size;
+    ``chunk_byte_histograms`` during the run, peak device memory; the
+    validations' exact ``val_cratio`` and ``val_score``, the step the
+    demo chose and that checkpoint's exact held-out gain. Fails unless
+    the losses are finite and fall, PSNR and SSIM are finite, the proxy
+    gain and the exact gain are above 1, every ``val_cratio`` was
+    measured, and each of the four kernels launched; the guard's
+    thresholds are not claimed at this size;
 19. resume and augmentation on phase 18's caches: ``train()`` for 2
     epochs straight (twice: the card's own run-to-run spread), against 1
     epoch that writes ``latest_state.ckpt`` and is stopped there, then
@@ -150,8 +158,11 @@ line:
     64³) held and timed as phase 7 holds its own; then ``train_n2v.main`` for 300 steps on 128 patches (its other flags
     at the JAX script's defaults), counted: 35 conv and 18 dL/dW launches
     a step, 72 conv launches of the held-out predict, one histogram
-    launch; losses finite and falling, scores finite, ``step_s``;
-22. live teachers: two brains of 512³ uint16 written as TIFF stacks (the
+    launch; losses finite and falling, scores finite, ``step_s``; then
+    the checkpoint's exact held-out gain in bf16 on the card (the
+    summary's) and in f32 on the CPU (``train_n2v --score``), S2's first
+    step;
+22. live teachers: two brains of 384³ uint16 written as TIFF stacks (the
     card's machine has no tensorstore): phase 4's block mirror-tiled with
     a pedestal of 37 counts and a labelled segmentation of its foreground,
     and the same phantom with z and x swapped, its own noise, mirror-tiled
@@ -169,7 +180,7 @@ line:
     streamed (``device_cache="auto"`` with ``device_cache_budget`` below
     the cache) and sharded (a forced ``device_cache=True`` whose budget
     holds one batch: 4 shards of 32 rows); each the window step of two
-    ``train()`` runs (2 and 6 epochs), the counted launches, the peak
+    ``train()`` runs (1 and 4 epochs), the counted launches, the peak
     device memory and the per-shard upload seconds of the longer run, and
     the idle share of a third, profiled ``train()`` of 3 epochs over its
     epochs 2-3 (busy = the union of the device intervals; the trace held
@@ -179,13 +190,16 @@ line:
     epoch, s])``'s and the sharded run's peak memory stays below the
     resident run's plus one shard (its cache footprint under two shards);
 24. codecs on the card's machine, on phase 4's noisy and denoised block:
-    ``compute_cratio_2d`` with ``PngSliceCodec`` (lossless, so exact) and
-    its round trip bit-equal; ``compress_and_decompress_2d`` of the
-    denoised block with ``Jpeg2000SliceCodec`` and ``JpegSliceCodec``,
-    each ratio with PSNR and SSIM against its input on the card; JPEG-XL
-    and the native blosc walk only where their library loads, else one
-    line names it and no number is reported (phase 25's two processes
-    start first and run beside it);
+    the blosc1 codec's self-check (each block as one frame decodes back
+    bit-equal, its header fields blosc's), the chunk walk's ratio equal
+    at 1 and 8 threads and to the per-chunk Python loop's, its seconds per
+    256³ volume at 1 and 8 threads; ``compute_cratio_2d`` with
+    ``PngSliceCodec`` (lossless, so exact) and its round trip bit-equal;
+    ``compress_and_decompress_2d`` of the denoised block with
+    ``Jpeg2000SliceCodec`` and ``JpegSliceCodec``, each ratio with PSNR
+    and SSIM against its input on the card; JPEG-XL and the libblosc walk
+    only where their library loads, else one line names it and no number
+    is reported (phase 25's two processes start first and run beside it);
 25. multi-GPU on the one card, three ways. Two processes over gloo
     (started with ``spawn``, the backend named: NCCL refuses two ranks on
     one device), whose halos cross a process boundary: ``predict_sharded``
@@ -218,6 +232,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -300,12 +315,12 @@ WINDOW_EPOCHS = (2, 10)  # of 4 steps: the step-time window is 32 steps
 # a pedestal of LIVE_OFFSET counts; every LIVE_SWC_STRIDE-th foreground
 # voxel of the second is a trace node; LIVE_N patches at precompute()'s
 # defaults (64^3, sigma 24, coherence gate on).
-LIVE_SIDE, LIVE_OFFSET, LIVE_SWC_STRIDE, LIVE_N = 512, 37, 200, 64
+LIVE_SIDE, LIVE_OFFSET, LIVE_SWC_STRIDE, LIVE_N = 384, 37, 200, 64
 # Production-scale training (phase 23): the step window of each path (a
-# 16-step window: phase 10's is 32); the loader alone at these worker
+# 12-step window: phase 10's is 32); the loader alone at these worker
 # counts, timed over LOADER_EPOCHS epochs of phase 10's cache after
 # LOADER_WARM, and over one epoch of LOADER_PHANTOMS phantom items.
-SCALE_WINDOW_EPOCHS = (2, 6)
+SCALE_WINDOW_EPOCHS = (1, 4)
 SCALE_PROFILE_EPOCHS = 3  # the profiled train(): epochs 2-3 are its window
 LOADER_WORKERS, LOADER_WARM, LOADER_EPOCHS, LOADER_PHANTOMS = (0, 4), 4, 4, 64
 # Blocked conv check (phase 14), (B, D, H, W, Cin, Cout): the bench's three
@@ -1064,7 +1079,6 @@ def training_path(train_dir, val_dir):
     record and the launch counts of the counted run."""
     import torch
 
-    from exaspim_tpu_torch.compression import best_codec
     from exaspim_tpu_torch.compression.proxy import (
         byte_histogram,
         chunk_byte_histograms,
@@ -1079,15 +1093,9 @@ def training_path(train_dir, val_dir):
     )
     from exaspim_tpu_torch.train.train_bm4dnet import train
 
-    try:
-        best_codec()
-        n_exact = 16
-    except RuntimeError as exc:
-        n_exact = 0
-        print(f"exact cratio: not measured ({exc})", flush=True)
     cfg = dict(batch_size=32, lr=1e-3, fg_weight=0.0, seed=42,
                width_multiplier=1.0, bf16=True, device_cache=True,
-               exact_cratio_examples=n_exact, device="cuda")
+               exact_cratio_examples=16, device="cuda")
     epochs = TRAIN_STEPS // (N_TRAIN // 32)
     torch.cuda.reset_peak_memory_stats()
     nb_conv3d.launches = nb_conv3d_dw.launches = byte_histogram.launches = 0
@@ -1142,6 +1150,10 @@ def training_path(train_dir, val_dir):
         fail(f"the loss did not fall: {losses}")
     if len(vals) != 2 or not all(np.isfinite(v["val_score"]) for v in vals):
         fail(f"validations: {vals}")
+    # val_cratio is the exact blosc-zstd ratio (median of 16 examples, the
+    # port's blosc1 encoder), and val_score weighs it.
+    if not all(v["val_cratio"] > 1.0 for v in vals):
+        fail(f"val_cratio not measured: {vals}")
 
     phase("training path: profile of two steps")
     run = cached_step(train_dir, trainer.state, trainer.transform)
@@ -2029,10 +2041,7 @@ def evaluation_path(img, clean, ckpt):
     import torch
 
     from exaspim_tpu_torch import evaluate as ev
-    from exaspim_tpu_torch.compression import best_codec
-    from exaspim_tpu_torch.inference import predict_patch
     from exaspim_tpu_torch.ops import bm4d_match as tm
-    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
     voxels, side, crop, dtype = EVAL_VOXELS, PATCH, 128, torch.bfloat16
     out_dir = os.path.join(WORK, "evaluate")
@@ -2045,58 +2054,65 @@ def evaluation_path(img, clean, ckpt):
         return float(np.sqrt(np.mean(
             (a.astype(np.float64) - b.astype(np.float64)) ** 2)))
 
-    try:
-        best_codec()
-        codec = True
-    except RuntimeError as exc:
-        codec = False
-        print(f"no exact codec ({exc}): the codec-free half runs",
-              flush=True)
-    rec = {"codec": codec}
+    rec = {}
     counters = (tm.match_topk, tm.match_distances, tm.select_topk)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    if codec:
-        mips = importlib.util.find_spec("matplotlib") is not None
-        blocks = {f"crop{i}": img[o:o + crop, o:o + crop, o:o + crop]
-                  for i, o in enumerate((0, img.shape[0] - crop))}
-        sup = ev.SupervisedEvaluator(
-            blocks, os.path.join(out_dir, "supervised"), save_mips=mips,
-            patch_size="auto", dtype=dtype)
-        df = sup.run(ckpt)
-        print(df.to_string(index=False), flush=True)
-        if len(df) != 2 or not np.isfinite(df["ssim"]).all() \
-                or not (df["cratio_gain"] > 1.0).all():
-            fail(f"supervised evaluation: {df.to_dict('records')}")
-        rec["supervised"] = df.to_dict("records")
-        uns = ev.UnsupervisedEvaluator(
-            read_patch, os.path.join(out_dir, "unsupervised"),
-            sigma_gt=BM_SIGMA, dtype=dtype)
-        uns.ingest_model(ckpt)
-        key = ("val", "foreground", "phantom")
+    mips = importlib.util.find_spec("matplotlib") is not None
+    blocks = {f"crop{i}": img[o:o + crop, o:o + crop, o:o + crop]
+              for i, o in enumerate((0, img.shape[0] - crop))}
+    sup = ev.SupervisedEvaluator(
+        blocks, os.path.join(out_dir, "supervised"), save_mips=mips,
+        patch_size="auto", dtype=dtype)
+    df = sup.run(ckpt)
+    print(df.to_string(index=False), flush=True)
+    if len(df) != 2 or not np.isfinite(df["ssim"]).all() \
+            or not (df["cratio_gain"] > 1.0).all():
+        fail(f"supervised evaluation: {df.to_dict('records')}")
+    rec["supervised"] = df.to_dict("records")
+    uns = ev.UnsupervisedEvaluator(
+        read_patch, os.path.join(out_dir, "unsupervised"),
+        sigma_gt=BM_SIGMA, dtype=dtype)
+    uns.ingest_model(ckpt)
+    key = ("val", "foreground", "phantom")
+    # Each voxel's ground truth and prediction, kept as the evaluator makes
+    # them, are held against the clean phantom.
+    gts, preds = [], []
+
+    def keep(fn, into):
+        def run(*args, **kw):
+            into.append(fn(*args, **kw))
+            return into[-1]
+        return run
+
+    with swapped(ev, bm4d_ground_truth=keep(ev.bm4d_ground_truth, gts),
+                 predict_patch=keep(ev.predict_patch, preds)):
         df = uns.run({key: list(voxels)})[key]
-        print(df.to_string(index=False), flush=True)
-        rows = df.to_dict("records")
-    else:
-        model, transform = restore_pipeline(ckpt, dtype=dtype)
-        rows = []
-        for v in voxels:
-            noise = read_patch("phantom", v)
-            gt = ev.bm4d_ground_truth(noise, BM_SIGMA)
-            pred = predict_patch(noise, model, transform)
-            z, y, x = v
-            ref = clean[z:z + side, y:y + side, x:x + side]
-            rows.append({"voxel": str(v),
-                         **ev.quality_metrics(noise, gt, pred),
-                         "rmse_noise": rmse(noise, ref),
-                         "rmse_gt": rmse(gt, ref),
-                         "rmse_pred": rmse(pred, ref)})
-            print(rows[-1], flush=True)
-            if pred.shape != noise.shape or pred.dtype != np.uint16 \
-                    or not rows[-1]["rmse_gt"] < rows[-1]["rmse_noise"] \
-                    or not rows[-1]["rmse_pred"] < rows[-1]["rmse_noise"]:
-                fail(f"evaluation at {v}: {rows[-1]}")
+    print(df.to_string(index=False), flush=True)
+    rows = df.to_dict("records")
+    if len(rows) != len(voxels) or len(gts) != len(voxels):
+        fail(f"unsupervised evaluation: {rows}")
+    for v, gt, pred, row in zip(voxels, gts, preds, rows):
+        z, y, x = v
+        ref = clean[z:z + side, y:y + side, x:x + side]
+        noise = read_patch("phantom", v)
+        row.update(rmse_noise=rmse(noise, ref), rmse_gt=rmse(gt, ref),
+                   rmse_pred=rmse(pred, ref))
+        print({k: row[k] for k in ("voxel", "rmse_noise", "rmse_gt",
+                                   "rmse_pred")}, flush=True)
+        # Every column finite; the ground truth and the prediction nearer
+        # the clean phantom than the noisy patch, and compressing better
+        # (exact ratios).
+        vals = [val for k, val in row.items()
+                if k not in ("brain_id", "voxel")]
+        if pred.shape != noise.shape or pred.dtype != np.uint16 \
+                or not np.all(np.isfinite(vals)) \
+                or not row["rmse_gt"] < row["rmse_noise"] \
+                or not row["rmse_pred"] < row["rmse_noise"] \
+                or not row["cratio"] > row["cratio_noise"] \
+                or not row["cratio_gt"] > row["cratio_noise"]:
+            fail(f"evaluation at {v}: {row}")
     rec["seconds"] = time.perf_counter() - t0
     rec["unsupervised"] = rows
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -2161,8 +2177,9 @@ def demo_path():
     launches = {fn.__name__: fn.launches for fn in counters}
     launches["nb_conv3d_reduce"] = nb_conv3d.reduce_launches
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = [e["loss"] for e in run_events(os.path.join(out, "run"))
-              if e["event"] == "train"]
+    events = run_events(os.path.join(out, "run"))
+    losses = [e["loss"] for e in events if e["event"] == "train"]
+    vals = [e for e in events if e["event"] == "val"]
     stages = {k: summary[k] for k in ("cache_build_s", "train_s",
                                       "predict_128c_s")}
     print(f"demo in {wall:.1f} s; stages {stages}", flush=True)
@@ -2171,6 +2188,21 @@ def demo_path():
           f"{peak_gb:.2f} GiB", flush=True)
     print(f"losses: first {losses[:3]}, last {losses[-3:]} "
           f"({len(losses)} steps)", flush=True)
+    # Checkpoint selection weighs the exact val_cratio (weight 10), as the
+    # JAX demo's does.
+    chosen = os.path.basename(summary["checkpoint"])
+    step = int(re.match(r"BM4DNet-\d+-(\d+)-", chosen).group(1))
+    print("validations (step, val_score, exact val_cratio, proxy): "
+          + "; ".join(f"({v['step']}, {v['val_score']:.4f}, "
+                      f"{v['val_cratio']}, {v['val_cratio_proxy']:.4f})"
+                      for v in vals)
+          + f"; the demo chose step {step} ({chosen}): exact held-out gain "
+          f"{summary['cratio_gain']} ({summary['cratio_raw']} -> "
+          f"{summary['cratio_denoised']}; proxy gain "
+          f"{summary['cratio_proxy_gain']})", flush=True)
+    if not vals or not all(v["val_cratio"] > 1.0 for v in vals) \
+            or not summary["cratio_gain"] > 1.0:
+        fail(f"demo exact ratios: {vals}, gain {summary['cratio_gain']}")
     scores = [summary[k] for k in (
         "psnr_vs_clean_raw", "psnr_vs_clean_denoised", "ssim_vs_clean_raw",
         "ssim_vs_clean_denoised")]
@@ -2187,7 +2219,8 @@ def demo_path():
     if idle:
         fail(f"the demo never launched {idle}")
     return {"wall_s": wall, "summary": summary, "launches": launches,
-            "peak_mem_gb": peak_gb, "losses": losses}, (
+            "peak_mem_gb": peak_gb, "losses": losses, "chosen_step": step,
+            "validations": vals}, (
         os.path.join(out, "cache_train"), os.path.join(out, "cache_val"))
 
 
@@ -2712,6 +2745,31 @@ def n2v_path():
         fail(f"N2V launches {launches}, expected {want}")
     rec.update({"wall_s": wall, "summary": summary, "launches": launches,
                 "peak_mem_gb": peak, "losses": losses})
+    # S2's first step: the exact gain of this checkpoint's bf16 output on
+    # the card (the summary's) and of its f32 output on the CPU, scored the
+    # same way (train_n2v --score, the held-out block).
+    t0 = time.perf_counter()
+    f32 = train_n2v.main(["--out", os.path.join(out, "f32"), "--score",
+                          os.path.join(out, "n2v.msgpack"),
+                          "--device", "cpu"])
+    gains = {}
+    for name, r in (("bf16_card", summary), ("f32_cpu", f32)):
+        gains[name] = {"exact": r["cratio_denoised"] / r["cratio_noisy"],
+                       "proxy": r["cratio_proxy_gain"],
+                       "psnr_db": r["psnr_denoised_db"],
+                       "cratio": [r["cratio_noisy"], r["cratio_denoised"]]}
+    rec["s2"] = gains
+    print(f"S2: exact held-out gain bf16 (card) "
+          f"{gains['bf16_card']['exact']:.4f} ({summary['cratio_noisy']} -> "
+          f"{summary['cratio_denoised']}), f32 (CPU, "
+          f"{time.perf_counter() - t0:.1f} s) {gains['f32_cpu']['exact']:.4f} "
+          f"({f32['cratio_noisy']} -> {f32['cratio_denoised']}); proxy "
+          f"gains {gains['bf16_card']['proxy']} / {gains['f32_cpu']['proxy']};"
+          f" PSNR {gains['bf16_card']['psnr_db']} / "
+          f"{gains['f32_cpu']['psnr_db']} dB", flush=True)
+    if not all(np.isfinite(g["exact"]) and g["exact"] > 0
+               for g in gains.values()):
+        fail(f"S2 exact gains: {gains}")
     return rec
 
 
@@ -3238,20 +3296,26 @@ def profile_report(prof, key, wall, lo=float("-inf"), hi=float("inf"),
 
 
 def codec_path(img, out):
-    """Phase 24: the compression package's slice codecs and ratios on the
-    card's machine, on phase 4's noisy and denoised 256^3 block. PNG is
-    lossless: its ratio is exact and its round trip must be bit-equal.
-    JPEG 2000 and JPEG go through compress_and_decompress_2d, scored
-    (PSNR, SSIM) against their input on the card. JPEG-XL and the native
-    blosc walk run only where their library loads; otherwise one line
-    names the missing library and no number is reported for them."""
+    """Phase 24: the compression package's codecs and ratios on the card's
+    machine, on phase 4's noisy and denoised 256^3 block. The blosc-zstd
+    ratio runs through the port's own blosc1 encoder (libzstd only): each
+    block framed whole and decoded back bit-equal, its header fields as
+    blosc writes them, the chunk walk's ratio equal to the per-chunk
+    Python loop's (and to the libblosc walk's where libblosc loads), the
+    walk timed at 1 and 8 threads. PNG is lossless: its ratio is exact and
+    its round trip must be bit-equal. JPEG 2000 and JPEG go through
+    compress_and_decompress_2d, scored (PSNR, SSIM) against their input on
+    the card. JPEG-XL and the libblosc walk run only where their library
+    loads; otherwise one line names the missing library and no number is
+    reported for them."""
     from exaspim_tpu_torch.ckpt_quality import score
     from exaspim_tpu_torch.compression import (
-        BloscCodec,
         Jpeg2000SliceCodec,
         JpegSliceCodec,
         JxlSliceCodec,
         PngSliceCodec,
+        best_codec,
+        blosc1,
         blosc_available,
         compress_and_decompress_2d,
         compute_cratio,
@@ -3260,21 +3324,60 @@ def codec_path(img, out):
         native,
     )
 
-    rec = {"jpegxl": None, "blosc_cratio": None}
+    rec = {"jpegxl": None}
     lossy = [("jpeg2000", Jpeg2000SliceCodec), ("jpeg", JpegSliceCodec)]
     if jxl.available():
         lossy.append(("jpegxl", JxlSliceCodec))
     else:
         rec["jpegxl_missing"] = jxl.unavailable_reason()
         print(f"JPEG-XL: not run ({rec['jpegxl_missing']})", flush=True)
-    blosc_why = (native.unavailable_reason() if blosc_available()
-                 else "libblosc.so.1 not found")
-    if blosc_why:
-        rec["blosc_missing"] = blosc_why
-        print(f"blosc ratio (Python and native walks): not run "
-              f"({blosc_why})", flush=True)
+    libblosc_why = (native.unavailable_reason() if blosc_available()
+                    else "libblosc.so.1 not found")
+    if libblosc_why:
+        rec["libblosc_missing"] = libblosc_why
+        print(f"libblosc walk (the yardstick): not run ({libblosc_why})",
+              flush=True)
+    codec = best_codec()
+    want_head = {"version": 2, "versionlz": 1, "flags": 0x91, "typesize": 2,
+                 "nbytes": img.nbytes, "blocksize": 512 * 1024,
+                 "memcpyed": False, "compressor": "zstd"}
     for name, vol in (("noisy", img), ("denoised", out)):
         r = {}
+        # The codec's self-check: the whole block as one frame (64 blocks
+        # of 512 KiB) decodes back bit-equal; the header is blosc's.
+        t0 = time.perf_counter()
+        frame = codec.encode(vol)
+        r["frame_encode_s"] = time.perf_counter() - t0
+        head = blosc1.frame_header(frame)
+        back = np.frombuffer(codec.decode(frame), np.uint16)
+        if not np.array_equal(back, vol.reshape(-1)):
+            fail(f"blosc1 round trip of the {name} block is not bit-equal")
+        if any(head[k] != v for k, v in want_head.items()) \
+                or head["cbytes"] != len(frame):
+            fail(f"blosc1 frame header of the {name} block: {head}")
+        chunk = codec.encode(np.ascontiguousarray(vol[:64, :64, :64]))
+        if blosc1.frame_header(chunk)["blocksize"] != 64 ** 3 * 2:
+            fail(f"64^3 chunk frame header: {blosc1.frame_header(chunk)}")
+        # The chunk walk: its ratio equals the per-chunk Python loop's
+        # (and the libblosc walk's where libblosc loads).
+        walks = {}
+        for threads in (1, 8):
+            t0 = time.perf_counter()
+            walks[threads] = blosc1.chunked_cratio(vol, n_threads=threads)
+            r[f"walk_s_{threads}"] = time.perf_counter() - t0
+        r["blosc_cratio"] = compute_cratio(vol, codec)
+        loop = compute_cratio(vol, codec, use_native=False)
+        if len(set(walks.values())) != 1 \
+                or round(walks[1], 2) != r["blosc_cratio"]:
+            fail(f"blosc1 walks {walks}, compute_cratio {r['blosc_cratio']}")
+        if r["blosc_cratio"] != loop:
+            fail(f"blosc1 walk {r['blosc_cratio']} != the Python loop {loop}")
+        r["blosc_cratio_unrounded"] = walks[1]
+        if not libblosc_why:
+            r["libblosc_cratio"] = native.chunked_cratio(vol, (64, 64, 64))
+            if r["libblosc_cratio"] != walks[1]:
+                fail(f"libblosc walk {r['libblosc_cratio']} != the blosc1 "
+                     f"walk {walks[1]}")
         t0 = time.perf_counter()
         r["png_cratio"] = compute_cratio_2d(vol, PngSliceCodec())
         back, r["png_roundtrip_cratio"] = compress_and_decompress_2d(
@@ -3291,27 +3394,23 @@ def codec_path(img, out):
             if not (ratio > 1 and np.isfinite(s["psnr_db"])
                     and np.isfinite(s["ssim"])):
                 fail(f"{cname} on the {name} block: {r[cname]}")
-        if not blosc_why:
-            t0 = time.perf_counter()
-            r["blosc_cratio"] = compute_cratio(vol, BloscCodec())
-            r["blosc_native_s"] = time.perf_counter() - t0
-            walk = compute_cratio(vol, BloscCodec(), use_native=False)
-            if walk != r["blosc_cratio"]:
-                fail(f"native blosc ratio {r['blosc_cratio']} != the Python "
-                     f"walk's {walk}")
-        print(f"{name}: PNG cratio {r['png_cratio']} (exact; round trip "
-              f"bit-equal, {r['png_roundtrip_cratio']} in its 32x256x256 "
-              f"chunks) {r['png_s']:.2f} s; " + "; ".join(
+        print(f"{name}: blosc-zstd {r['blosc_cratio']} (exact, "
+              f"{walks[1]!r} unrounded; walk {r['walk_s_1']:.3f} s at 1 "
+              f"thread, {r['walk_s_8']:.3f} s at 8; the block as one frame "
+              f"{len(frame)} bytes in {r['frame_encode_s']:.3f} s, round "
+              f"trip bit-equal); PNG cratio {r['png_cratio']} (exact; round "
+              f"trip bit-equal, {r['png_roundtrip_cratio']} in its "
+              f"32x256x256 chunks) {r['png_s']:.2f} s; " + "; ".join(
                   f"{c} cratio {r[c]['cratio']} psnr {r[c]['psnr_db']:.4f} "
                   f"dB ssim {r[c]['ssim']:.6f} ({r[c]['s']:.2f} s)"
-                  for c, _ in lossy if c in r)
-              + (f"; blosc {r['blosc_cratio']}" if not blosc_why else ""),
-              flush=True)
+                  for c, _ in lossy if c in r), flush=True)
         rec[name] = r
     rec["png_gain"] = (rec["denoised"]["png_cratio"]
                        / rec["noisy"]["png_cratio"])
-    print(f"PNG (lossless) ratio gain noisy -> denoised "
-          f"{rec['png_gain']:.4f}", flush=True)
+    rec["blosc_gain"] = (rec["denoised"]["blosc_cratio_unrounded"]
+                         / rec["noisy"]["blosc_cratio_unrounded"])
+    print(f"ratio gain noisy -> denoised: blosc-zstd {rec['blosc_gain']:.4f}"
+          f", PNG (lossless) {rec['png_gain']:.4f}", flush=True)
     return rec
 
 
@@ -3724,10 +3823,31 @@ def main():
     t0 = time.time()
     if set(KERNELS) != set(_build.KERNELS):
         fail(f"the package lists the kernel sources {_build.KERNELS}")
+    # The blosc1 codec (host C++, g++, links libzstd.so.1) builds beside
+    # the kernels, in a thread of its own.
+    from exaspim_tpu_torch.compression import blosc1
+
+    codec_build = {}
+
+    def build_codec():
+        t = time.time()
+        codec_build["ok"] = blosc1.available()
+        codec_build["s"] = time.time() - t
+
+    codec_thread = threading.Thread(target=build_codec)
+    codec_thread.start()
     build_s = _build.build_all(KERNELS)
+    codec_thread.join()
     record["build_s"] = time.time() - t0
     print(f"build_s={record['build_s']:.2f} (all seven sources, in parallel; "
           f"nb_conv3d {build_s['nb_conv3d']:.2f})", flush=True)
+    if not codec_build.get("ok"):
+        fail(f"the blosc1 codec did not build: {blosc1.unavailable_reason()}")
+    record["zstd_version"] = blosc1.zstd_version()
+    record["codec_build_s"] = codec_build["s"]
+    print(f"blosc1_zstd.cpp: built and loaded in {codec_build['s']:.2f} s "
+          f"(g++, beside the kernels); libzstd {record['zstd_version']} "
+          "(ZSTD_versionString: the exact ratios follow it)", flush=True)
     print_ptxas(_build, "nb_conv3d")
     for name in ("nb_conv3d", "nb_conv3d_dw", "blocked_conv3d"):
         spills = [ln for ln in _build.build_log(name).splitlines()
@@ -3866,34 +3986,32 @@ def main():
         fail("the card's output strays from the f32 CPU path")
 
     phase("quality")
-    # Scored through the port's quality check (ckpt_quality.score): PSNR,
-    # SSIM and, where an exact codec is installed, the blosc-zstd ratio.
+    # The whole guard (bench.py:74 quality_ok) on the card's output, scored
+    # through the port's quality check (ckpt_quality.score): the exact
+    # blosc-zstd ratio (the port's blosc1 encoder over libzstd), PSNR, SSIM.
     from exaspim_tpu_torch.ckpt_quality import exact_codec, proxy_ratios
     from exaspim_tpu_torch.ckpt_quality import score as quality_score
     from exaspim_tpu_torch.compression.proxy import chunk_byte_histograms
 
-    codec, why = exact_codec()
+    codec = exact_codec()
     s_noisy = quality_score(img, clean, codec, device="cuda")
     s_out = quality_score(out, clean, codec, device="cuda")
     q = {
+        "cratio_noisy": s_noisy["cratio"],
+        "cratio_denoised": s_out["cratio"],
         "psnr_noisy_db": s_noisy["psnr_db"],
         "psnr_denoised_db": s_out["psnr_db"],
         "ssim_noisy": s_noisy["ssim"],
         "ssim_denoised": s_out["ssim"],
     }
+    q["cratio_gain"] = q["cratio_denoised"] / q["cratio_noisy"]
     q["psnr_gain_db"] = q["psnr_denoised_db"] - q["psnr_noisy_db"]
-    ok = q["ssim_denoised"] >= q["ssim_noisy"] and \
-        q["psnr_gain_db"] >= MIN_PSNR_GAIN_DB
-    if codec is not None:
-        q["cratio_noisy"] = s_noisy["cratio"]
-        q["cratio_denoised"] = s_out["cratio"]
-        q["cratio_gain"] = q["cratio_denoised"] / q["cratio_noisy"]
-        ok = ok and q["cratio_gain"] >= MIN_CRATIO_GAIN
-        print(f"cratio {q['cratio_noisy']} -> {q['cratio_denoised']} gain "
-              f"{q['cratio_gain']:.4f} (>= {MIN_CRATIO_GAIN}; r05 "
-              f"{REF_R05['cratio_gain']})")
-    else:
-        print(f"cratio: unavailable ({why})")
+    ok = q["cratio_gain"] >= MIN_CRATIO_GAIN \
+        and q["ssim_denoised"] >= q["ssim_noisy"] \
+        and q["psnr_gain_db"] >= MIN_PSNR_GAIN_DB
+    print(f"cratio {q['cratio_noisy']} -> {q['cratio_denoised']} gain "
+          f"{q['cratio_gain']:.4f} (>= {MIN_CRATIO_GAIN}; exact, "
+          f"{codec.config}; r05 {REF_R05['cratio_gain']})")
     print(f"psnr {q['psnr_noisy_db']:.4f} -> {q['psnr_denoised_db']:.4f} dB "
           f"gain {q['psnr_gain_db']:.4f} (>= {MIN_PSNR_GAIN_DB}; r05 "
           f"{REF_R05['psnr_gain_db']})")
@@ -3908,7 +4026,8 @@ def main():
     print(f"entropy proxy {q['proxy_noisy']:.4f} -> "
           f"{q['proxy_denoised']:.4f} gain {q['proxy_gain']:.4f} (in "
           f"{q['proxy_launches']} chunk_byte_histograms launch; not in the "
-          "guard)", flush=True)
+          f"guard) beside the exact {q['cratio_noisy']} -> "
+          f"{q['cratio_denoised']} gain {q['cratio_gain']:.4f}", flush=True)
     record["quality"] = q
     if q["proxy_launches"] != 1:
         fail(f"the proxy of the pair made {q['proxy_launches']} launches")

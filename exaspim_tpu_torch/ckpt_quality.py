@@ -11,43 +11,33 @@ and one per checkpoint, with the script's fields and rounding:
 * per checkpoint: ``ckpt``, ``cratio_denoised``, ``cratio_gain``,
   ``psnr_denoised_db``, ``ssim_denoised``.
 
-The exact ratio needs libblosc (or the ``zstandard`` package). Where
-neither is installed, as on the card's machine, the cratio fields are
-``null``, one line on stderr says why, and nothing is estimated in their
-place. Beside them each record carries the device-side entropy proxy
-(``compression/proxy.py``: ``cratio_proxy_noisy``; per checkpoint
-``cratio_proxy_denoised`` and ``cratio_proxy_gain``), from one
-``cratio_proxy_batch`` launch on the noisy and denoised pair: the only
-compression figure the card's machine can give.
+The exact ratio needs only libzstd: the codec is the port's own blosc1
+encoder (:mod:`~exaspim_tpu_torch.compression.blosc1`), whose frames are
+libblosc's, so the cratio fields are those of the script on every machine
+the port runs on. Beside them each record carries the device-side
+entropy proxy (``compression/proxy.py``: ``cratio_proxy_noisy``; per
+checkpoint ``cratio_proxy_denoised`` and ``cratio_proxy_gain``), from one
+``cratio_proxy_batch`` launch on the noisy and denoised pair.
 
     python -m exaspim_tpu_torch.ckpt_quality CKPT [CKPT ...] [--block 256]
         [--family a|b] [--seed-clean 0] [--seed-noise 1]
-        [--volume-offset none|auto] [--device cuda|cpu] [--save-dir DIR]
-    python -m exaspim_tpu_torch.ckpt_quality --saved DIR/CKPT.npz ...
+        [--volume-offset none|auto] [--device cuda|cpu]
 
 It runs on the card unless ``--device cpu`` is given, in bf16 there as the
 script runs it, and in f32 on the CPU, where the plain conv runs
 (:func:`quality_records` also takes the dtype and the patch size).
-``--save-dir`` also writes each checkpoint's denoised volume to
-``DIR/<checkpoint file name>.npz`` (``np.savez_compressed``, key
-``denoised``); ``--saved`` scores such files instead of checkpoints, with
-the same records. So a machine without an exact codec can denoise (in f32
-on its CPU) and a machine with one can take the exact ratio of the same
-volumes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import sys
 
 import numpy as np
 import torch
 
 __all__ = ["main", "quality_records", "score", "proxy_ratios",
-           "bench_volumes", "saved_records"]
+           "bench_volumes", "exact_codec"]
 
 CLEVEL = 6
 
@@ -73,14 +63,12 @@ def bench_volumes(block=256, family="a", seed_clean=0, seed_noise=1):
 
 
 def exact_codec():
-    """The script's codec (blosc-zstd level 6), or ``(None, why)`` where
-    no exact codec is installed."""
+    """The script's codec, blosc-zstd level 6 (:func:`best_codec`: the
+    port's own blosc1 encoder over libzstd). Raises ``RuntimeError`` with
+    the reason where it cannot be built."""
     from exaspim_tpu_torch.compression import best_codec
 
-    try:
-        return best_codec(clevel=CLEVEL), None
-    except RuntimeError as exc:
-        return None, str(exc)
+    return best_codec(clevel=CLEVEL)
 
 
 def score(vol, clean, codec=None, device="cuda"):
@@ -128,9 +116,7 @@ def _volume_transform(transform, img, seed_clean, seed_noise):
 def _noisy_record(block, family, seed_clean, seed_noise, device):
     """``(clean, noisy volume, codec, the noisy record)``."""
     clean, img = bench_volumes(block, family, seed_clean, seed_noise)
-    codec, why = exact_codec()
-    if codec is None:
-        print(f"cratio: unavailable ({why})", file=sys.stderr, flush=True)
+    codec = exact_codec()
     noisy = score(img, clean, codec, device)
     return clean, img, codec, {
         "family": family,
@@ -150,8 +136,7 @@ def _denoised_record(name, out, img, clean, codec, noisy, device):
     return {
         "ckpt": name,
         "cratio_denoised": s["cratio"],
-        "cratio_gain": (None if codec is None
-                        else round(s["cratio"] / noisy["_cratio"], 3)),
+        "cratio_gain": round(s["cratio"] / noisy["_cratio"], 3),
         "psnr_denoised_db": round(s["psnr_db"], 2),
         "ssim_denoised": round(s["ssim"], 4),
         "cratio_proxy_denoised": round(p_out, 4),
@@ -159,32 +144,11 @@ def _denoised_record(name, out, img, clean, codec, noisy, device):
     }
 
 
-def saved_records(paths, block=256, family="a", seed_clean=0, seed_noise=1,
-                  device="cuda"):
-    """The records of :func:`quality_records` for denoised volumes saved
-    by ``--save-dir`` (``.npz``, key ``denoised``) instead of
-    checkpoints; ``ckpt`` names the file."""
-    clean, img, codec, noisy = _noisy_record(block, family, seed_clean,
-                                             seed_noise, device)
-    records = [noisy]
-    for path in paths:
-        with np.load(path) as z:
-            out = z["denoised"]
-        if out.shape != img.shape or out.dtype != np.uint16:
-            raise ValueError(f"{path}: {out.shape} {out.dtype}, expected "
-                             f"{img.shape} uint16")
-        records.append(_denoised_record(path, out, img, clean, codec, noisy,
-                                        device))
-    noisy.pop("_cratio")
-    return records
-
-
 def quality_records(ckpts, block=256, family="a", seed_clean=0, seed_noise=1,
                     volume_offset="none", device="cuda", dtype=None,
-                    patch_size="auto", save_dir=None):
+                    patch_size="auto"):
     """The records the script prints (see the module docstring), as dicts:
-    the noisy volume's first, then one per checkpoint path. ``save_dir``:
-    write each denoised volume there (see the module docstring)."""
+    the noisy volume's first, then one per checkpoint path."""
     from exaspim_tpu_torch.inference import predict
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
@@ -205,10 +169,6 @@ def quality_records(ckpts, block=256, family="a", seed_clean=0, seed_noise=1,
             out = predict(img, model, transform, patch_size=patch_size,
                           device=device)
         del model
-        if save_dir is not None:
-            os.makedirs(save_dir, exist_ok=True)
-            np.savez_compressed(os.path.join(
-                save_dir, os.path.basename(path) + ".npz"), denoised=out)
         records.append(_denoised_record(path, out, img, clean, codec, noisy,
                                         device))
     noisy.pop("_cratio")
@@ -232,25 +192,14 @@ def main(argv=None):
                         "background and the estimate on the family the "
                         "transform was calibrated for")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--save-dir",
-                   help="also write each denoised volume to "
-                        "DIR/<checkpoint file name>.npz")
-    p.add_argument("--saved", action="store_true",
-                   help="the arguments are denoised volumes written by "
-                        "--save-dir, not checkpoints")
     args = p.parse_args(argv)
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to score on "
                            "the CPU")
-    common = dict(block=args.block, family=args.family,
-                  seed_clean=args.seed_clean, seed_noise=args.seed_noise,
-                  device=args.device)
-    if args.saved:
-        records = saved_records(args.ckpts, **common)
-    else:
-        records = quality_records(
-            args.ckpts, volume_offset=args.volume_offset,
-            save_dir=args.save_dir, **common)
+    records = quality_records(
+        args.ckpts, block=args.block, family=args.family,
+        seed_clean=args.seed_clean, seed_noise=args.seed_noise,
+        volume_offset=args.volume_offset, device=args.device)
     for rec in records:
         print(json.dumps(rec), flush=True)
     return records

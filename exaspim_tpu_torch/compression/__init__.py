@@ -1,6 +1,7 @@
 """Chunked codecs, the blosc-zstd compression ratio (the product metric),
 the slice codecs' ratios and the device-side proxy."""
 
+from exaspim_tpu_torch.compression.blosc1 import Blosc1ZstdCodec
 from exaspim_tpu_torch.compression.blosc import (
     BloscCodec,
     ZstdShuffleCodec,
@@ -23,6 +24,7 @@ from exaspim_tpu_torch.compression.jxl import available as jxl_available
 from exaspim_tpu_torch.compression.proxy import cratio_proxy
 
 __all__ = [
+    "Blosc1ZstdCodec",
     "BloscCodec",
     "Jpeg2000SliceCodec",
     "JpegSliceCodec",

@@ -1,11 +1,17 @@
-"""Blosc codec bound to the system ``libblosc`` through ctypes.
+"""Blosc codec bound to the system ``libblosc`` through ctypes, and the
+choice of the exact codec.
 
-Copy of the binding in ``exaspim_tpu/compression/blosc.py``: the same C
-library and the same ``blosc_compress_ctx`` parameters, so chunked
-compression ratios are byte-for-byte those of the reference, and streams
-decode with ``blosc_decompress_ctx``. Where ``libblosc`` is missing,
-:func:`blosc_available` says so and :func:`best_codec` takes
-:class:`ZstdShuffleCodec` (``zstandard``), the reference's fallback.
+:class:`BloscCodec` is a copy of the binding in
+``exaspim_tpu/compression/blosc.py``: the same C library and the same
+``blosc_compress_ctx`` parameters, so chunked compression ratios are
+byte-for-byte those of the reference, and streams decode with
+``blosc_decompress_ctx``. It is the yardstick of the port's own blosc1
+encoder (:mod:`~exaspim_tpu_torch.compression.blosc1`), which writes the
+same zstd frames over libzstd alone: :func:`best_codec` returns that
+encoder, so the port scores with the same code on every machine, with
+or without libblosc. :class:`ZstdShuffleCodec` is the copy of the
+reference's non-exact ``zstandard`` codec; nothing chooses it in place
+of an exact one.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import ctypes.util
 import threading
 
 import numpy as np
+
+from exaspim_tpu_torch.compression import blosc1
 
 __all__ = [
     "BloscCodec",
@@ -190,16 +198,19 @@ class ZstdShuffleCodec:
 
 
 def best_codec(cname="zstd", clevel=6, shuffle=SHUFFLE):
-    """The blosc codec when libblosc loads, else :class:`ZstdShuffleCodec`.
-    Raises ``RuntimeError`` when neither libblosc nor ``zstandard`` is
-    installed: no other codec stands in for them."""
-    if blosc_available():
-        return BloscCodec(cname=cname, clevel=clevel, shuffle=shuffle)
-    try:
-        return ZstdShuffleCodec(clevel=clevel, shuffle=shuffle)
-    except ImportError:
-        raise RuntimeError(
-            "no exact compression codec: neither libblosc nor the zstandard "
-            "package is installed; measure no exact ratio "
-            "(Trainer(exact_cratio_examples=0))"
-        ) from None
+    """The exact blosc codec: the port's own blosc1 encoder
+    (:class:`~exaspim_tpu_torch.compression.blosc1.Blosc1ZstdCodec`, over
+    libzstd) for zstd with shuffle 0 or 1, whether or not libblosc is
+    installed; :class:`BloscCodec` (libblosc) for another compressor.
+    Raises ``RuntimeError`` with the reason where that codec cannot be
+    had: no other codec stands in for it."""
+    if cname == "zstd" and shuffle in (0, 1):
+        if not blosc1.available():
+            raise RuntimeError("no exact compression codec: "
+                               f"{blosc1.unavailable_reason()}")
+        return blosc1.Blosc1ZstdCodec(clevel=clevel, shuffle=shuffle)
+    if not blosc_available():
+        raise RuntimeError(f"no exact compression codec: blosc with "
+                           f"{cname!r} (shuffle {shuffle}) needs libblosc, "
+                           "which is not installed")
+    return BloscCodec(cname=cname, clevel=clevel, shuffle=shuffle)

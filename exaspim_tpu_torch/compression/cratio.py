@@ -4,9 +4,10 @@ Counterpart of ``exaspim_tpu/compression/cratio.py``.
 :func:`compute_cratio` is the reference's Zarr-style chunked ratio
 (reference img_util.py:401-441): each 64³ chunk of a uint16 volume is
 encoded on its own and the ratio is total uncompressed bytes over total
-compressed bytes, rounded to 2 decimals. For a blosc codec it walks the
-chunks in C++ (:mod:`~exaspim_tpu_torch.compression.native`) where that
-library builds, else in Python; both give the same ratio.
+compressed bytes, rounded to 2 decimals. For a blosc-zstd codec it
+walks the chunks in C++ with the port's own blosc1 encoder
+(:mod:`~exaspim_tpu_torch.compression.blosc1`), else in Python; both
+give the same ratio.
 
 :func:`compute_cratio_2d` and :func:`compress_and_decompress_2d` run any
 2-D slice codec (``encode``/``decode``) over the chunks' last-axis slices
@@ -36,20 +37,28 @@ def _chunk_starts(shape, chunk_shape):
 def compute_cratio(img, codec, patch_shape=(64, 64, 64), use_native=True):
     """Zarr-style chunked compression ratio of a uint16 volume.
 
-    With ``use_native`` and a blosc codec (``codec.config["id"] ==
-    "blosc"``) the chunks are walked by the native library when it is
-    available; otherwise by the Python loop."""
+    With ``use_native`` and a blosc-zstd codec (``codec.config``: id
+    ``"blosc"``, cname ``"zstd"``, shuffle 0 or 1, as ``BloscCodec`` and
+    ``Blosc1ZstdCodec`` alike write it) the chunks are walked in C++ by the
+    port's blosc1 encoder
+    (:func:`~exaspim_tpu_torch.compression.blosc1.chunked_cratio`, libzstd
+    only) where it builds; otherwise by the Python loop over
+    ``codec.encode``. Both give the same ratio. The libblosc walk of
+    ``native/chunked_cratio.cpp`` is never chosen here: call
+    :func:`~exaspim_tpu_torch.compression.native.chunked_cratio` to
+    compare with it."""
     img = np.asarray(img)
     if img.ndim == 5:
         img = img[0, 0]
     img = np.ascontiguousarray(img, dtype=np.uint16)
-    cfg = getattr(codec, "config", None)
-    if use_native and cfg is not None and cfg.get("id") == "blosc":
-        from exaspim_tpu_torch.compression import native
+    cfg = getattr(codec, "config", None) or {}
+    if (use_native and cfg.get("id") == "blosc"
+            and cfg.get("cname") == "zstd" and cfg.get("shuffle") in (0, 1)):
+        from exaspim_tpu_torch.compression import blosc1
 
-        if native.available():
-            return round(native.chunked_cratio(
-                img, patch_shape, cname=cfg["cname"], clevel=cfg["clevel"],
+        if blosc1.available():
+            return round(blosc1.chunked_cratio(
+                img, patch_shape, clevel=cfg["clevel"],
                 shuffle=cfg["shuffle"]), 2)
     total_c = 0
     total_u = 0

@@ -5,7 +5,11 @@ Counterpart of ``exaspim_tpu/compression/native.py``: a ctypes binding of
 the 64³ chunk grid and calls ``blosc_compress_ctx`` over a thread pool,
 so the ratio needs no per-chunk Python loop. The ratio is the Python
 walk's (:func:`~exaspim_tpu_torch.compression.cratio.compute_cratio`):
-the same library, the same chunks, the same parameters.
+the same library, the same chunks, the same parameters. It is the
+yardstick of the port's own walk
+(:func:`~exaspim_tpu_torch.compression.blosc1.chunked_cratio`, libzstd
+only), which ``compute_cratio`` takes; this walk runs only when
+:func:`chunked_cratio` is called.
 
 The library is built on first use with ``g++`` and the flags of
 ``native/Makefile`` into ``exaspim_tpu_torch/build/`` (gitignored), under

@@ -11,11 +11,12 @@ the fidelity against the clean phantom.
 
 It runs on the card (bf16 compute, f32 params, as the JAX demo) unless
 ``--device cpu`` is given (f32 there, on the plain versions of the
-kernels). The summary has the JAX demo's keys and roundings. Where no
-exact codec is installed (libblosc or ``zstandard``), as on the card's
-machine, ``cratio_raw``, ``cratio_denoised`` and ``cratio_gain`` are
-``null``, training measures no exact ratio, and one line on stderr says
-why. Beside them stand ``cratio_proxy_raw``, ``cratio_proxy_denoised`` and
+kernels). The summary has the JAX demo's keys and roundings. The exact
+ratios (``cratio_raw``, ``cratio_denoised``, ``cratio_gain``, and the
+``val_cratio`` of 16 validation examples that checkpoint selection
+weighs, as in the JAX demo) need only libzstd: the codec is the port's
+own blosc1 encoder, whose frames are libblosc's. Beside them stand
+``cratio_proxy_raw``, ``cratio_proxy_denoised`` and
 ``cratio_proxy_gain``: the device-side entropy proxy of the noisy and the
 denoised block, from one histogram launch on the pair.
 """
@@ -25,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -78,9 +78,7 @@ def score_checkpoint(ckpt, device="cuda", dtype=None):
     t_pred = time.time() - t0
     del model
 
-    codec, why = exact_codec()
-    if codec is None:
-        print(f"cratio: unavailable ({why})", file=sys.stderr, flush=True)
+    codec = exact_codec()
     clean_u16 = np.clip(np.round(clean), 0, 65535).astype(np.uint16)
     fg = make_foreground_mask(clean_u16)
     metrics = evaluate_example(denoised, noisy, clean_u16, fg)
@@ -100,8 +98,7 @@ def score_checkpoint(ckpt, device="cuda", dtype=None):
         "cratio_proxy_denoised": round(p_out, 4),
         "cratio_proxy_gain": round(p_out / p_raw, 4),
         "predict_128c_s": round(t_pred, 2),
-        "cratio_gain": (None if codec is None
-                        else round(out["cratio"] / raw["cratio"], 3)),
+        "cratio_gain": round(out["cratio"] / raw["cratio"], 3),
     }
 
 
@@ -133,7 +130,6 @@ def main(argv=None):
     if args.device != "cpu" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run the "
                            "demo on the CPU")
-    from exaspim_tpu_torch.ckpt_quality import exact_codec
     from exaspim_tpu_torch.train.checkpoint import find_best_checkpoint
 
     os.makedirs(args.out, exist_ok=True)
@@ -166,7 +162,7 @@ def main(argv=None):
         device_cache_budget=int(args.device_cache_budget_gb * (1 << 30)),
         full_state_every=args.full_state_every,
         bf16=args.device != "cpu",
-        exact_cratio_examples=16 if exact_codec()[0] is not None else 0,
+        exact_cratio_examples=16,
         device=args.device,
     )
     t_train = time.time() - t0

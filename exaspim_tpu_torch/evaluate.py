@@ -57,8 +57,9 @@ def bm4d_ground_truth(noise, sigma, device="cuda"):
 
 
 def quality_metrics(noise, gt, pred, device="cuda"):
-    """The codec-free columns of an unsupervised row: SSIM against the
-    noisy patch and the ground truth, MAE and L∞ against the ground truth."""
+    """The columns of an unsupervised row besides the ratios: SSIM against
+    the noisy patch and the ground truth, MAE and L∞ against the ground
+    truth."""
     rng = float(np.asarray(noise).max())
     n, g, p = (_f32(a, device) for a in (noise, gt, pred))
     return {

@@ -15,8 +15,10 @@ Usage (on the card):
 file that drives the run as in the JAX script: its fields replace the
 training flags, which are then ignored. The port's own flags
 (``--exact-cratio-examples``, ``--device``) still apply.
-``--exact-cratio-examples 0`` skips the exact host cratio where neither
-libblosc nor ``zstandard`` is installed.
+The exact host cratio of ``--exact-cratio-examples`` validation
+examples (16, as the JAX trainer measures them) needs only libzstd: the
+codec is the port's own blosc1 encoder, so it is measured on the card's
+machine too; ``--exact-cratio-examples 0`` measures none.
 
 ``--data-parallel`` trains over every process of the job, one device
 each (:mod:`exaspim_tpu_torch.parallel`): launch it with ``torchrun``,

@@ -42,10 +42,12 @@ all-reduced to the global mean
 are broadcast from rank 0 at the start and stay equal on every rank.
 Batches stream through the loader (``device_cache=True`` with a mesh
 raises). Only the primary rank validates and writes checkpoints, logs,
-MIPs and TensorBoard scalars. The exact cratio needs libblosc or
-``zstandard``; without either,
-pass ``exact_cratio_examples=0`` and ``val_cratio`` is 0.0, as the
-reference reports it when no example was measured.
+MIPs and TensorBoard scalars. The codec is always built, as the
+reference builds it: the exact cratio needs only libzstd (the port's own
+blosc1 encoder, :mod:`~exaspim_tpu_torch.compression.blosc1`), so it is
+measured on every machine the port runs on. ``exact_cratio_examples=0``
+measures none and ``val_cratio`` is 0.0, as the reference reports it
+when no example was measured.
 """
 
 from __future__ import annotations
@@ -128,10 +130,7 @@ class Trainer:
             checkpoint_weights or DEFAULT_CHECKPOINT_WEIGHTS
         )
         self.exact_cratio_examples = int(exact_cratio_examples)
-        # The exact codec is built only where an exact ratio is measured:
-        # the card's host may have neither libblosc nor zstandard.
-        self.codec = (best_codec(clevel=clevel)
-                      if self.exact_cratio_examples > 0 else None)
+        self.codec = best_codec(clevel=clevel)
         self.seed = int(seed)
         self.warmup_steps = int(warmup_steps)
         self.max_val_examples = max_val_examples
@@ -607,8 +606,7 @@ class Trainer:
         """Per-example host-oracle validation: every prediction comes to
         the host and is scored by
         :func:`~exaspim_tpu_torch.ops.metrics.evaluate_example`, with its
-        exact cratio where a codec is set (``exact_cratio_examples > 0``;
-        else ``val_cratio`` is 0.0)."""
+        exact cratio."""
         losses, cratios, rows = [], [], []
         n_seen = n_mips = 0
         for x, y, counts, fg in val_loader:
@@ -626,8 +624,7 @@ class Trainer:
                 if (self.max_val_examples is not None
                         and n_seen >= self.max_val_examples):
                     break
-                if self.codec is not None:
-                    cratios.append(compute_cratio(pred[i], self.codec))
+                cratios.append(compute_cratio(pred[i], self.codec))
                 rows.append(evaluate_example(
                     pred[i], np.asarray(counts[i]), y_np[i], fg_np[i]))
                 if n_mips < self.keep_mips:
