@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port on NVIDIA GPUs.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card and ``nvcc`` (it builds the seven kernel sources of
-``exaspim_tpu_torch/csrc/`` for ``sm_90a`` into
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
+CUDA card (phase 26 two or more) and ``nvcc`` (it builds the seven
+kernel sources of ``exaspim_tpu_torch/csrc/`` for ``sm_90a`` into
 ``exaspim_tpu_torch/build/``, one nvcc process each, in parallel) and
 exits non-zero without a card. Phases, each announced by a ``# phase:``
 line:
 
-1. device: the card's name and power limit (``nvidia-smi``);
+1. device: each card's name and power limit (``nvidia-smi``);
 2. build: compile all kernels, print the conv's seconds and ptxas report
    (no register spills allowed in the three conv sources: ``nb_conv3d``,
    ``nb_conv3d_dw``, ``blocked_conv3d``); beside them, in a thread, the
@@ -218,7 +218,36 @@ line:
     ``bm4d_sharded`` bit-equal, the step bit-equal to the single step and
     ``train(data_parallel=True)`` for one epoch (4 steps), counted, beside
     the two processes; after them the same two predicts, counted, timed
-    and bit-equal.
+    and bit-equal;
+26. multi-GPU across the machine's cards, one process a card over NCCL
+    (on one card one line says that it needs two or more and is not
+    run). (a) From this one process, each row of the kernel table at one
+    of its path shapes on every card, bit-equal to card 0's output, held
+    on card 0 against its plain version and timed beside it; then one
+    process a card (``spawn``, torchrun's environment, LOCAL_RANK = rank;
+    nothing built there), while this one computes the one-card
+    references (its timed runs while they wait, set up and idle):
+    (b) ``predict_sharded`` of the 256³ block in both
+    branches (the canvas at phase 4's plan where a card's core holds a
+    patch of 96, else patch 64), every rank SHA-equal to one card's
+    ``predict``, conv launches per rank as planned; (c)
+    ``denoise_volume(mesh=)`` of phase 16's volume at its defaults, equal
+    to the one-card stream, its rate against the one-card stream's timed
+    here, the forwarded voxels over the output voxels, and a profile of
+    each (idle share, conv, NCCL and copy time); (d)
+    ``bm4d_sharded`` of cards x 66 planes, bit-equal to ``bm4d`` of the
+    reflect-extended volume, two matcher launches a rank; (e) one
+    data-parallel step of 32 split over the cards against one step of 32
+    on one card (phase 25's limits, parameters bit-equal across the
+    cards), then 32 patches a card timed and profiled (the NCCL
+    all-reduce's kernel ms a step, each rank's idle share); the halo
+    exchange and ``gather_z`` timed a call; (f) ``python3 -m
+    torch.distributed.run --nproc_per_node <cards>`` of the training CLI
+    with ``--data-parallel`` at 32 patches a card: losses finite and
+    falling, launches per rank, rank 0 alone writing. One line a card
+    with its name and power limit. ``python3 chip_smoke.py --multi-card``
+    runs phases 1, 2 and 26 alone (its own block and caches) and exits
+    non-zero on fewer than two cards.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -398,6 +427,16 @@ MGPU_BM4D_CORE, MGPU_BM4D_YX, DP_BATCH, MGPU_TRAIN_EPOCHS = 66, 64, 32, 1
 # 2 · lr).
 DP_LOSS_RTOL, DP_GRAD_REL_L2 = 1e-6, 6e-3
 DP_PARAM_ATOL, DP_FLIP_SHARE = 2e-3 * 1.001, 0.025
+# Multi-GPU across cards (phase 26): one process a card over NCCL. The
+# timed data-parallel steps and the torch.distributed.run training run
+# take CARD_BATCH patches a card (the global batch CARD_BATCH x cards):
+# CARD_TIMED_STEPS timed and CARD_PROFILED_STEPS profiled steps after a
+# warm one; the training run at least CARD_TRAIN_STEPS steps. The card
+# processes and the training run each have CARD_DEADLINE_S seconds.
+CARD_BATCH, CARD_TIMED_STEPS, CARD_PROFILED_STEPS = 32, 5, 3
+CARD_TRAIN_STEPS, CARD_DEADLINE_S = 6, 240
+# What a profiled stream's device time is read by (kernel names).
+STREAM_KEYS = ("nb_conv3d", "nccl", "Memcpy DtoH", "Memcpy HtoD")
 
 _T0 = time.time()
 
@@ -439,14 +478,24 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True):
+def keep(outputs, *tensors):
+    """A checker's kernel outputs, copied to the host, appended to
+    ``outputs`` where it is a list (phase 26 (a) holds each card's equal to
+    card 0's); nothing where it is None."""
+    if outputs is not None:
+        outputs.extend(t.detach().cpu() for t in tensors)
+
+
+def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True,
+                 outputs=None):
     """Conv kernel vs plain version at one shape (``n``: an edge or
     ``(D, H, W)``): within OUT_RTOL and STATS_RTOL, two launches bit-equal,
     the planted descriptor fault caught, and two of the elements launched
     alone as a smaller batch bit-equal to their slots. The time is that of
     the mode the path runs (``stats``: a forward with GroupNorm statistics;
     else plain mode, as the backward's dL/dx runs it). Returns its
-    record."""
+    record; the kernel's output and statistics go to ``outputs``
+    (:func:`keep`)."""
     import torch
     import torch.nn.functional as F
 
@@ -463,6 +512,7 @@ def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True):
          / np.sqrt(27 * cin)).to(torch.bfloat16)
     plan = nc._plan(b, *ext, segs, cout)
     y, s1, s2 = nb_conv3d(xs, k, with_stats=True)
+    keep(outputs, y, s1, s2)
     y2, t1, t2 = nb_conv3d(xs, k, with_stats=True)
     y_plain_mode = nb_conv3d(xs, k)
     # Planted fault: tap 0 reads tap 1's view of the A operand (a debug
@@ -569,12 +619,12 @@ def check_kernel(b, n, segs, cout, seed, stats=True, time_it=True):
     return rec
 
 
-def check_dw(b, n, segs, cout, seed):
+def check_dw(b, n, segs, cout, seed, outputs=None):
     """dL/dW kernel vs plain at one training shape: within DW_RTOL of the
     |x|·|g| contraction, two launches bit-equal, the planted fault (tap 0
     reads tap 1's view) caught; timed beside the plain version, one
     ``convolution_backward`` (a yardstick only) and the card's bound.
-    Returns its record."""
+    Returns its record; the kernel's output goes to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops import nb_conv as nc
@@ -589,6 +639,7 @@ def check_dw(b, n, segs, cout, seed):
                     dtype=torch.bfloat16) * 0.1
     plan = nc._dw_plan(b, n, n, n, tuple(segs), cout)
     got = nb_conv3d_dw(xs, g)
+    keep(outputs, got)
     again = nb_conv3d_dw(xs, g)
     bad = nc._launch_dw(xs, g, debug=1)
     plain = nb_conv3d_dw_plain(xs, g)
@@ -633,12 +684,14 @@ def check_dw(b, n, segs, cout, seed):
     return rec
 
 
-def check_histogram(val_vols, pair):
+def check_histogram(val_vols, pair=None, edge_cases=True, outputs=None):
     """Phase 8: both entries of the byte-histogram kernel against their
-    plain versions at every edge case of ``hist_bench.edge_cases``, on a
-    validation batch (``val_vols``, 32 x 64^3 int32 counts) and on the 256^3
-    pair of phase 4 (noisy and denoised, int32); two launches bit-equal;
-    one call one kernel on the device; times on the batch and the pair."""
+    plain versions at every edge case of ``hist_bench.edge_cases`` (unless
+    ``edge_cases`` is false), on a validation batch (``val_vols``, 32 x
+    64^3 int32 counts) and on the 256^3 pair of phase 4 (noisy and
+    denoised, int32) where it is given; two launches bit-equal; one call
+    one kernel on the device; times on the batch and the pair. Both
+    entries' outputs go to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.compression import proxy as P
@@ -647,6 +700,7 @@ def check_histogram(val_vols, pair):
     def check(name, rows, vols, chunk):
         got = P.byte_histogram(rows)
         got_c = P.chunk_byte_histograms(vols, chunk)
+        keep(outputs, got, got_c)
         ref = P.byte_histogram_plain(rows)
         ref_c = P.chunk_byte_histograms_plain(vols, chunk)
         again = (P.byte_histogram(rows), P.chunk_byte_histograms(vols, chunk))
@@ -662,18 +716,22 @@ def check_histogram(val_vols, pair):
               f"{tuple(vols.shape)} chunk {chunk}: both entries equal to "
               "plain, repeat bit-equal", flush=True)
 
-    for name, (rows, vols, chunk) in hb.edge_cases("cuda").items():
-        check(name, rows, vols, chunk)
-    work = {"validation batch": val_vols, "256^3 pair": pair}
+    if edge_cases:
+        for name, (rows, vols, chunk) in hb.edge_cases("cuda").items():
+            check(name, rows, vols, chunk)
+    work = {"validation batch": val_vols}
+    if pair is not None:
+        work["256^3 pair"] = pair
     rows = {k: hb._rows(v, 64) for k, v in work.items()}
     for k in work:
         check(k, rows[k], work[k], 64)
     # One call, one kernel: the call captured in a CUDA graph holds one
     # kernel node and nothing else (no memset, no conversion, no copy).
+    last = list(work)[-1]
     for label, fn in (
-            ("byte_histogram", lambda: P.byte_histogram(rows["256^3 pair"])),
+            ("byte_histogram", lambda: P.byte_histogram(rows[last])),
             ("chunk_byte_histograms",
-             lambda: P.chunk_byte_histograms(work["256^3 pair"], 64))):
+             lambda: P.chunk_byte_histograms(work[last], 64))):
         ops = hb.device_ops(fn)
         if len(ops) != 1 or ops[0][0] != "kernel" \
                 or "byte_histogram" not in ops[0][1]:
@@ -1319,12 +1377,13 @@ def width_path(train_dir, transform_cfg):
     return rec
 
 
-def check_matching(name, vol):
+def check_matching(name, vol, outputs=None):
     """Phase 11 on one volume: the fused kernel's starts against the plain
     version's, then its two halves (the table instance, the selection over
     that table) against theirs, each timed beside its plain version, the
     bound and, for the selection, one ``torch.topk``. Returns the fused
-    and the selection records."""
+    and the selection records; the kernels' starts and table go to
+    ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops import bm4d_match as tm
@@ -1334,7 +1393,7 @@ def check_matching(name, vol):
     grid = tm.grid_shape(g.shape, BM_B, BM_STEP)
     refs = grid[0] * grid[1] * grid[2]
     kw = dict(block=BM_B, step=BM_STEP, search=BM_W)
-    fused_err = check_fused(name, g)
+    fused_err = check_fused(name, g, outputs)
     table = tm.match_distances(g, **kw)
     plain = tm.match_distances_plain(g, **kw)
     torch.cuda.synchronize()
@@ -1348,6 +1407,7 @@ def check_matching(name, vol):
     del plain, ulps
     sel = (grid, BM_K, BM_STEP, BM_W)
     starts = tm.select_topk(table, *sel)
+    keep(outputs, table, *starts)
     want = tm.select_topk_plain(table, *sel)
     torch.cuda.synchronize()
     sel_err = max(int((a - b).abs().max()) for a, b in zip(starts, want))
@@ -1393,15 +1453,17 @@ def check_matching(name, vol):
     return fused, select
 
 
-def check_fused(name, g):
+def check_fused(name, g, outputs=None):
     """The fused kernel on a guide or a batch of guides against
     select_topk_plain(match_distances_plain(.)) on the card: the starts
-    must be equal, member 0 the reference itself. Returns max |Δ|."""
+    must be equal, member 0 the reference itself. Returns max |Δ|; the
+    starts go to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops import bm4d_match as tm
 
     starts = tm.match_topk(g, BM_B, BM_K, BM_STEP, BM_W)
+    keep(outputs, *starts)
     want = tm.match_topk_plain(g, BM_B, BM_K, BM_STEP, BM_W)
     torch.cuda.synchronize()
     err = max(int((a - b).abs().max()) for a, b in zip(starts, want))
@@ -1422,10 +1484,11 @@ def check_fused(name, g):
     return err
 
 
-def matching_kernels():
+def matching_kernels(outputs=None):
     """Phase 11: three volumes and a batch of three 64³ patches; then the
     fused kernel's time per patch on the teacher path's batches (eight 64³
-    patches, each stage one launch). Returns the records."""
+    patches, each stage one launch). Returns the records; the kernels'
+    outputs go to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.data.precompute import TEACHER_BATCH
@@ -1444,10 +1507,10 @@ def matching_kernels():
     basics = bm4d_batch(raws, BM_SIGMA, two_stage=False)
     big = noisy_observation(neurite_phantom((128,) * 3, seed=0)[0], seed=1)
     big = np.pad(big.astype(np.float32), [(0, 2)] * 3, mode="reflect")
-    recs = [check_matching("64^3 raw patch", raws[0]),
-            check_matching("64^3 stage-1 estimate", basics[0]),
-            check_matching("130^3 volume", big)]
-    batch_err = check_fused("batch of three 64^3 patches", raws[:3])
+    recs = [check_matching("64^3 raw patch", raws[0], outputs),
+            check_matching("64^3 stage-1 estimate", basics[0], outputs),
+            check_matching("130^3 volume", big, outputs)]
+    batch_err = check_fused("batch of three 64^3 patches", raws[:3], outputs)
     # The path's shape: a stage of TEACHER_BATCH patches is one launch.
     path = [cuda_ms(lambda v=v: tm.match_topk(v, BM_B, BM_K, BM_STEP, BM_W),
                     20) / TEACHER_BATCH for v in (raws, basics)]
@@ -1606,10 +1669,10 @@ def teacher_path():
             "voxels_per_s": PATCH ** 3 / sec, "profile": prof}
 
 
-def asinh_kernels(img, transform):
+def asinh_kernels(img, transform, outputs=None):
     """Phase 13: the elementwise path on the 256³ block, counted, then the
     two kernels against their plain versions. Returns their records and
-    the launch counts."""
+    the launch counts; the kernels' outputs go to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops.elementwise import (
@@ -1650,6 +1713,7 @@ def asinh_kernels(img, transform):
     yn = yp + 0.01 * torch.randn(yp.shape, generator=gen, device="cuda")
     del yp
     got = asinh_inverse(yn, **kw).to(torch.int32)
+    keep(outputs, y, back, got)
     d = (got - asinh_inverse_plain(yn, **kw).to(torch.int32)).abs()
     i_err, i_share = int(d.max()), float((d > 0).float().mean())
     d = (got - transform.inverse_counts(yn)).abs()
@@ -1706,9 +1770,10 @@ def vjp_reading(got, ref, mag):
     return float((d / allow).max())
 
 
-def check_blocked(b, d, h, w, cin, cout, seed):
+def check_blocked(b, d, h, w, cin, cout, seed, outputs=None):
     """Phase 14 at one shape: ``blocked_conv3d`` against its plain version,
-    its two gradients against an f32 reference, and the planted fault."""
+    its two gradients against an f32 reference, and the planted fault. The
+    kernel's output goes to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops import blocked_conv as bc
@@ -1725,6 +1790,7 @@ def check_blocked(b, d, h, w, cin, cout, seed):
     with torch.no_grad():
         y = bc.blocked_conv3d(x, k)
         plain = bc.blocked_conv3d_plain(x, k)
+    keep(outputs, y)
     torch.cuda.synchronize()
     if bc.blocked_conv3d.launches != before + 1:
         fail(f"blocked {name}: one call counted "
@@ -1772,11 +1838,12 @@ def check_blocked(b, d, h, w, cin, cout, seed):
             "rel_err": err / scale, "dx": dx, "dw": dw, "fault_dx": bad_dx}
 
 
-def time_blocked(b, d, h, w, cin, cout):
+def time_blocked(b, d, h, w, cin, cout, outputs=None):
     """``blocked_conv3d`` at one bench shape and batch, where the conv bench
     runs it: held element-wise against its plain version there (another
     grid and 64-bit offsets than the batch-2 check), then device ms beside
-    the plain version's, cuDNN's (a yardstick only) and the card's bound."""
+    the plain version's, cuDNN's (a yardstick only) and the card's bound.
+    The kernel's output goes to ``outputs``."""
     import torch
     import torch.nn.functional as F
 
@@ -1793,6 +1860,7 @@ def time_blocked(b, d, h, w, cin, cout):
     name = f"{d}x{h}x{w} {cin}->{cout}"
     with torch.no_grad():
         y, plain = blocked_conv3d(x, k), blocked_conv3d_plain(x, k)
+        keep(outputs, y)
         # In bf16, chunked: the difference of two bf16 values is exact in f32
         # and the full f32 copies of a batch-32 output are not needed.
         err = max(float((a.float() - p.float()).abs().max())
@@ -1824,19 +1892,19 @@ def time_blocked(b, d, h, w, cin, cout):
     return rec
 
 
-def blocked_kernel():
+def blocked_kernel(outputs=None):
     """Phase 14; returns the check records and the batch-32 time records
-    of the three bench shapes."""
+    of the three bench shapes; the kernel's outputs go to ``outputs``."""
     import torch
 
     from exaspim_tpu_torch.ops.nb_bench import SHAPES
 
-    checks = [check_blocked(*s, seed=40 + i)
+    checks = [check_blocked(*s, seed=40 + i, outputs=outputs)
               for i, s in enumerate(BLOCKED_SHAPES)]
     torch.cuda.empty_cache()
     times = []
     for d, h, w, cin, cout in SHAPES:
-        times.append(time_blocked(BENCH_BATCH, d, h, w, cin, cout))
+        times.append(time_blocked(BENCH_BATCH, d, h, w, cin, cout, outputs))
         torch.cuda.empty_cache()
     return checks, times
 
@@ -1897,8 +1965,7 @@ def pipeline_path(img, ckpt):
     from exaspim_tpu_torch.transforms import build_transform
 
     n, max_block, slab_z = PIPE_N, PIPE_MAX_BLOCK, 256
-    pad = [(0, max(0, n - s)) for s in img.shape]
-    vol = np.pad(img, pad, mode="symmetric")[:n, :n, :n]
+    vol = pipe_volume(img)
     patch, batch = plan_tiling((min(n, slab_z),) + vol.shape[1:], OVERLAP)
     kw = dict(patch_size=patch, overlap=OVERLAP, trim=TRIM, batch_size=batch)
     cores = plan_stream_cores(vol.shape, patch, OVERLAP, max_block)
@@ -3428,14 +3495,6 @@ def _sha(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def mgpu_predicts(patch, batch):
-    """Phase 25's two predict_sharded geometries of the 256^3 block: the
-    parity canvas at phase 4's plan, and the patch-by-patch stitch."""
-    return (("canvas", dict(patch_size=patch, overlap=OVERLAP, trim=TRIM,
-                            batch_size=batch)),
-            ("scatter", MGPU_SCATTER))
-
-
 def dp_setup(train_dir, model=None):
     """A train state from the shipped weights (width 1.0, bf16; into
     ``model`` when given, a model restored from them) and the first
@@ -3444,8 +3503,6 @@ def dp_setup(train_dir, model=None):
     state's update records)."""
     import torch
 
-    from exaspim_tpu_torch.data.cache import CachedPatchDataset
-    from exaspim_tpu_torch.data.loader import to_tensor
     from exaspim_tpu_torch.train.checkpoint import (
         load_checkpoint,
         restore_pipeline,
@@ -3460,9 +3517,7 @@ def dp_setup(train_dir, model=None):
     state = create_train_state(model, lr=1e-3, total_steps=100,
                                params=ckpt["params"])
     transform = build_transform(ckpt["transform"])
-    ds = CachedPatchDataset(train_dir)
-    batch = tuple(to_tensor(np.asarray(a[0][:DP_BATCH])[..., None], "cuda")
-                  for a in (ds._raw, ds._teacher, ds._fg))
+    batch = card_batch(train_dir, DP_BATCH)
     grads, apply = [], state.apply_gradients
 
     def spy():  # the (all-reduced) gradient AdamW receives
@@ -3513,7 +3568,7 @@ def mgpu_worker(rank, world, port, job_dir):
     model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
                                         device="cuda")
     img = np.load(os.path.join(job_dir, "img.npy"))
-    for name, kw in mgpu_predicts(job["patch"], job["batch"]):
+    for name, kw in card_predicts(world, job["patch"], job["batch"]):
         nb_conv3d.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3589,10 +3644,6 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
     from exaspim_tpu_torch.ops.bm4d import bm4d
     from exaspim_tpu_torch.ops.bm4d_match import match_topk
     from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
-    from exaspim_tpu_torch.parallel.spatial import (
-        _canvas_rows,
-        _shard_starts,
-    )
     from exaspim_tpu_torch.train.checkpoint import restore_pipeline
     from exaspim_tpu_torch.train.state import make_train_step
     from exaspim_tpu_torch.train.train_bm4dnet import train
@@ -3604,7 +3655,7 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
     # The single-device references, while the two processes run.
     model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
                                         device="cuda")
-    predicts = mgpu_predicts(patch, batch)
+    predicts = card_predicts(2, patch, batch)
     refs = {name: predict(img, model, transform, **kw)
             for name, kw in predicts}
     del model
@@ -3618,18 +3669,6 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
               "params": _flat_params(state)}
     del state, xb, grads
     torch.cuda.empty_cache()
-
-    # Expected conv launches per rank: 18 a batch of its patches.
-    def want_launches(name, kw, n):
-        if name == "canvas":
-            stride = kw["patch_size"] - kw["overlap"]
-            yx = len(range(0, BLOCK - kw["patch_size"] + stride, stride))
-            counts = [(k1 - k0 + 1) * yx ** 2 for k0, k1 in _canvas_rows(
-                BLOCK, n, kw["patch_size"], kw["overlap"])]
-        else:
-            counts = [len(loc) for loc, _ in _shard_starts(
-                BLOCK, n, kw["patch_size"], kw["overlap"], img.shape)]
-        return [18 * -(-c // kw["batch_size"]) for c in counts]
 
     # NCCL at world size 1, through torchrun's environment: its untimed
     # checks run beside the two gloo processes, its timed predicts after.
@@ -3705,7 +3744,7 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
               "to their end", flush=True)
         rec["gloo"]["dp"] = _gloo_checks(
             ranks, dict(np.load(os.path.join(job, "rank0.npz"))), refs,
-            oracle, single, predicts, want_launches, z, halo)
+            oracle, single, predicts, z, halo)
 
         model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
                                             device="cuda")
@@ -3715,7 +3754,7 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
             t1 = time.perf_counter()
             o = par.predict_sharded(img, model, transform, mesh, **kw)
             sec = time.perf_counter() - t1
-            want = want_launches(name, kw, 1)[0]
+            want = sharded_launches(kw, 1)[0][0]
             nccl[name] = {"s": sec, "launches": nb_conv3d.launches}
             print(f"nccl, world size 1, {name}: bit-equal to predict "
                   f"{np.array_equal(o, refs[name])}; nb_conv3d launches "
@@ -3733,13 +3772,12 @@ def multi_gpu_path(gloo, img, patch, batch, train_dir, val_dir):
     return rec
 
 
-def _gloo_checks(ranks, big, refs, oracle, single, predicts, want_launches,
-                 z, halo):
+def _gloo_checks(ranks, big, refs, oracle, single, predicts, z, halo):
     """Phase 25's checks of the two gloo processes' records against the
     single-device references; returns the data-parallel reading."""
     for name, kw in predicts:
         got = [r[f"{name}_launches"] for r in ranks]
-        want = want_launches(name, kw, 2)
+        want = sharded_launches(kw, 2)[0]
         shas = {r[f"{name}_sha"] for r in ranks}
         equal = shas == {_sha(refs[name])}  # SHA-256 of the bytes
         print(f"gloo, 2 ranks, {name}: bit-equal to predict {equal}, ranks "
@@ -3790,9 +3828,862 @@ def _gloo_checks(ranks, big, refs, oracle, single, predicts, want_launches,
     return dp_rec
 
 
+def sharded_launches(kw, n, shape=(BLOCK,) * 3):
+    """Expected conv launches per rank of ``predict_sharded`` of a volume
+    of ``shape`` over ``n`` ranks at the geometry ``kw``: 18 a batch of
+    the patches the rank evaluates (the canvas rows of its core, or the
+    global starts that touch it)."""
+    from exaspim_tpu_torch.parallel.spatial import (
+        _canvas_rows,
+        _shard_starts,
+    )
+
+    p, b = kw["patch_size"], kw["batch_size"]
+    stride = p - kw["overlap"]
+    if p <= 2 * stride:
+        yx = [len(range(0, max(d - p + stride, 1), stride))
+              for d in shape[1:]]
+        counts = [(k1 - k0 + 1) * yx[0] * yx[1] for k0, k1 in
+                  _canvas_rows(shape[0], n, p, kw["overlap"])]
+    else:
+        counts = [len(loc) for loc, _ in _shard_starts(
+            shape[0], n, p, kw["overlap"], shape)]
+    return [18 * -(-c // b) for c in counts], counts
+
+
+def card_predicts(n, patch, batch):
+    """Phases 25's and 26's two predict_sharded geometries of the 256^3
+    block over ``n`` ranks: the parity canvas at phase 4's plan where each
+    rank's core holds a patch of it, else at patch 64 (its batch kept: at
+    4 cards the cores are 64 planes); and the patch-by-patch stitch
+    (MGPU_SCATTER)."""
+    p = patch if BLOCK // n >= patch else 64
+    return (("canvas", dict(patch_size=p, overlap=OVERLAP, trim=TRIM,
+                            batch_size=batch)),
+            ("scatter", MGPU_SCATTER))
+
+
+def pipe_volume(img):
+    """Phase 16's volume: the 256^3 block mirror-tiled to PIPE_N^3."""
+    pad = [(0, max(0, PIPE_N - s)) for s in img.shape]
+    return np.pad(img, pad, mode="symmetric")[:PIPE_N, :PIPE_N, :PIPE_N]
+
+
+def stream_counts(shape, n, slab_z=256):
+    """``denoise_volume`` at phase 16's defaults over ``n`` ranks (one: a
+    card alone): per rank its expected conv launches, and the patches
+    every rank evaluates summed over the super-tiles; each tile's z extent
+    padded up to one patch-size core a rank as
+    ``pipeline._predict_on_mesh`` does. Returns (launches per rank,
+    patches in all, patch)."""
+    from exaspim_tpu_torch.inference import plan_tiling
+    from exaspim_tpu_torch.pipeline import _tile_plan
+
+    patch, batch = plan_tiling((min(shape[0], slab_z),) + shape[1:], OVERLAP)
+    plan = _tile_plan(shape, (max(slab_z, patch),) + shape[1:], patch,
+                      patch - OVERLAP)
+    kw = dict(patch_size=patch, overlap=OVERLAP, batch_size=batch)
+    launches, patches = [0] * n, 0
+    for tile in plan:
+        zb, y, x = (hi - lo for _, _, lo, hi in tile)
+        per, counts = sharded_launches(
+            kw, n, (max(n * patch, zb + (-zb) % n), y, x))
+        launches = [a + b for a, b in zip(launches, per)]
+        patches += sum(counts)
+    return launches, patches, patch
+
+
+def card_batch(train_dir, n):
+    """The first ``n`` patches of phase 10's cache (wrapping round it) as
+    count batches on the card: (x, y, fg)."""
+    from exaspim_tpu_torch.data.cache import CachedPatchDataset
+    from exaspim_tpu_torch.data.loader import to_tensor
+
+    ds = CachedPatchDataset(train_dir)
+    idx = np.arange(n) % len(ds)
+    return tuple(to_tensor(np.asarray(a[0])[idx][..., None], "cuda")
+                 for a in (ds._raw, ds._teacher, ds._fg))
+
+
+def _timed_calls(fn, log):
+    """``fn`` wrapped to append (seconds, bytes moved) of each call to
+    ``log``: every rank enters together (a barrier), the clock stops when
+    the result is on this card."""
+    import torch
+    import torch.distributed as dist
+
+    def timed(t, *args):
+        torch.cuda.synchronize()
+        dist.barrier(group=args[-1])
+        t0 = time.perf_counter()
+        out = fn(t, *args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, t.numel() * t.element_size()))
+        return out
+
+    return timed
+
+
+def cards_worker(rank, world, port, job_dir):
+    """Phase 26: one of ``world`` processes, one card each, over NCCL under
+    torchrun's environment (LOCAL_RANK = rank). Set up, it says so
+    (``ready<rank>`` in ``job_dir``) and waits, idle, for ``go``, which the
+    parent writes after its timed one-card runs. Then it runs
+    predict_sharded (both branches, counted, then timed, then with the
+    halo exchange and gather_z timed), denoise_volume(mesh=) of phase
+    16's volume (counted cold, timed warm, then profiled), bm4d_sharded,
+    the data-parallel step of DP_BATCH split over the cards, then
+    CARD_BATCH a card timed and profiled; writes its record into
+    ``job_dir``."""
+    import importlib
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    warm = threading.Thread(target=importlib.import_module,
+                            args=("torch._inductor.config",), daemon=True)
+    warm.start()
+    os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                       "RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank)})
+    from exaspim_tpu_torch import parallel as par
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.parallel import spatial
+    from exaspim_tpu_torch.pipeline import denoise_volume
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    if not par.initialize_multihost() or dist.get_backend() != "nccl":
+        raise RuntimeError("initialize_multihost did not join an NCCL group")
+    dev = torch.cuda.current_device()
+    res = {"rank": rank, "device": dev,
+           "name": torch.cuda.get_device_name(dev)}
+    big = {}
+    model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                        device="cuda")
+    img = np.load(os.path.join(job_dir, "img.npy"))
+    vol = pipe_volume(img)
+    bvol = np.load(os.path.join(job_dir, "bm4d.npy"))
+    mesh = par.make_mesh(axis="z")
+    dist.barrier()
+    with open(os.path.join(job_dir, f"ready{rank}"), "w"):
+        pass
+    go = os.path.join(job_dir, "go")
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    sync = torch.cuda.synchronize
+
+    def run(key, fn, counters):
+        for c in counters:
+            c.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        res[f"{key}_s"] = time.perf_counter() - t0
+        res[f"{key}_launches"] = [c.launches for c in counters]
+        return out
+
+    for name, kw in card_predicts(world, job["patch"], job["batch"]):
+        o = run(name, lambda: par.predict_sharded(img, model, transform,
+                                                   mesh, **kw), [nb_conv3d])
+        res[f"{name}_sha"] = _sha(o)
+        run(f"{name}_warm", lambda: par.predict_sharded(
+            img, model, transform, mesh, **kw), [nb_conv3d])
+    # The halo exchange and gather_z alone, on the canvas branch's tensors.
+    halos, gathers = [], []
+    kw = card_predicts(world, job["patch"], job["batch"])[0][1]
+    with swapped(spatial,
+                 exchange_halos=_timed_calls(spatial.exchange_halos, halos),
+                 gather_z=_timed_calls(spatial.gather_z, gathers)):
+        for _ in range(3):
+            par.predict_sharded(img, model, transform, mesh, **kw)
+    res["halo_calls"], res["gather_calls"] = halos, gathers
+
+    pipe = dict(overlap=OVERLAP, trim=TRIM, slab_z=256, patch_size="auto",
+                mesh=mesh)
+    o = run("stream_cold", lambda: denoise_volume(vol, model, transform,
+                                                  **pipe), [nb_conv3d])
+    res["stream_sha"] = _sha(o)
+    o = run("stream_warm", lambda: denoise_volume(vol, model, transform,
+                                                  **pipe), [nb_conv3d])
+    res["stream_warm_sha"] = _sha(o)
+    del o
+    res["stream_profile"] = profile_once(
+        lambda: denoise_volume(vol, model, transform, **pipe), STREAM_KEYS)
+
+    warm.join()
+    den = run("bm4d", lambda: par.bm4d_sharded(
+        bvol, BM_SIGMA, mesh, block=BM_B, group=BM_K, step=BM_STEP,
+        search=BM_W).cpu().numpy(), [match_topk])
+    res["bm4d_sha"] = _sha(den)
+    torch.cuda.empty_cache()
+
+    # The data-parallel step of DP_BATCH split over the cards.
+    dmesh = par.make_mesh(axis="data")
+    state, batch, transform, grads = dp_setup(job["train_dir"], model)
+    step = par.make_dp_train_step(dmesh, fg_weight=0.0, transform=transform)
+    share = par.shard_batch(dmesh, batch)
+    state, loss = run("dp", lambda: step(state, *share),
+                      [nb_conv3d, nb_conv3d_dw])
+    res["dp_loss"], res["dp_share"] = float(loss), int(share[0].shape[0])
+    big["dp_params"] = _flat_params(state)
+    big["dp_grads"] = grads[0].cpu().numpy()
+    res["dp_params_sha"] = _sha(big["dp_params"])
+    del state.apply_gradients, batch, share
+    grads.clear()
+
+    # CARD_BATCH a card (the global batch CARD_BATCH x world): timed, then
+    # profiled.
+    share = par.shard_batch(dmesh, card_batch(job["train_dir"],
+                                              CARD_BATCH * world))
+    state, loss = step(state, *share)
+    times = []
+    for _ in range(CARD_TIMED_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, loss = step(state, *share)
+        float(loss)
+        times.append(time.perf_counter() - t0)
+    res["step_s"] = times
+
+    def steps():
+        nonlocal state
+        for _ in range(CARD_PROFILED_STEPS):
+            state, loss = step(state, *share)
+        float(loss)
+
+    res["profile"] = profile_once(steps, ("nccl",))
+    with open(os.path.join(job_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        np.savez(os.path.join(job_dir, "rank0.npz"), **big)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_child(job_dir, argv):
+    """One rank of phase 26's ``torch.distributed.run`` training run: the
+    training CLI's entry (``train_bm4dnet.main``) on ``argv``, as ``-m
+    exaspim_tpu_torch.train.train_bm4dnet`` runs it, its ``train()`` set to
+    log every step (``log_every=1``, not the default 50: one loss a step
+    for the trend), then its launch counts and whether it was the writing
+    rank, into ``job_dir``."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from exaspim_tpu_torch.compression.proxy import (
+        byte_histogram,
+        chunk_byte_histograms,
+    )
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_dw
+    from exaspim_tpu_torch.train import train_bm4dnet
+
+    counters = (nb_conv3d, nb_conv3d_dw, chunk_byte_histograms,
+                byte_histogram)
+    for c in counters:
+        c.launches = 0
+    every_step = functools.partial(train_bm4dnet.train, log_every=1)
+    t0 = time.perf_counter()
+    with swapped(train_bm4dnet, train=every_step):
+        trainer = train_bm4dnet.main(argv)
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0, "rank": dist.get_rank(),
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "device": torch.cuda.current_device(),
+           "local_rank": int(os.environ["LOCAL_RANK"]),
+           "primary": trainer.primary, "mesh": trainer.mesh is not None,
+           "launches": {c.__name__: c.launches for c in counters}}
+    with open(os.path.join(job_dir, f"train_rank{rec['rank']}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def kernels_on_cards(n, img, transform, val_dir):
+    """Phase 26 (a): the kernel checks of phases 3, 7, 8, 11, 13 and 14, one
+    path shape or set of each row, run from this one process on cuda:0 ...
+    cuda:n-1, each card the current device in turn. On every card each
+    check holds its kernel against its plain version with its phase's
+    limits and times it; the kernels' outputs on every other card must be
+    bit-equal to card 0's. A kernel whose dynamic shared memory was allowed
+    on one card only fails to launch on the next. Returns card 0's records
+    by row."""
+    import torch
+
+    from exaspim_tpu_torch.data.cache import CachedValidateDataset
+    from exaspim_tpu_torch.data.loader import counts_f32, to_tensor
+
+    val = np.asarray(CachedValidateDataset(val_dir)._raw[0])
+    checks = {
+        "row 1": ("dL/dx of the training step at 32^3 64->32, B=32 "
+                  "(phase 7)", lambda out: check_kernel(
+                      32, 32, (64,), 32, seed=261, stats=False,
+                      outputs=out)),
+        "row 2": ("the 256^3 block's 48^3 64->64 forward, B=9 (phase 3)",
+                  lambda out: check_kernel(9, 48, (64,), 64, seed=262,
+                                           outputs=out)),
+        "row 3": ("dL/dW of the training step at 32^3 64->64, B=32 "
+                  "(phase 7)", lambda out: check_dw(32, 32, (64,), 64,
+                                                    seed=263, outputs=out)),
+        "rows 4-5": ("phase 11: three volumes, a batch of three, the "
+                     "teacher path's batches of 8", lambda out:
+                     matching_kernels(out)),
+        "row 6": ("phase 8 on a validation batch, without its edge cases",
+                  lambda out: check_histogram(
+                      counts_f32(to_tensor(val, "cuda")).to(torch.int32),
+                      edge_cases=False, outputs=out)),
+        "row 7": ("phase 13 on the 256^3 block", lambda out:
+                  asinh_kernels(img, transform, out)[0]),
+        "row 8": ("phase 14: seven checked shapes, three timed at B=32",
+                  lambda out: blocked_kernel(out)[1]),
+    }
+    recs = {}
+    for row, (where, check) in checks.items():
+        outs = []
+        for i in range(n):
+            out = []
+            print(f"(a) {row} on cuda:{i}: {where}", flush=True)
+            with torch.cuda.device(i):
+                try:
+                    rec = check(out)
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    fail(f"{row} on cuda:{i} (after cuda:0 ... cuda:{i - 1} "
+                         f"in this process): {e}")
+                torch.cuda.empty_cache()
+            if i == 0:
+                recs[row] = {"checked_at": where, "record": rec}
+            outs.append(out)
+        equal = [len(o) == len(outs[0]) and all(
+            torch.equal(a, b) for a, b in zip(o, outs[0])) for o in outs]
+        recs[row]["bits_equal_across_cards"] = all(equal)
+        print(f"(a) {row}: {len(outs[0])} kernel outputs on each card, "
+              f"bits equal to card 0's {equal}", flush=True)
+        if not all(equal):
+            fail(f"{row}: a card's kernel outputs differ from card 0's")
+    return recs
+
+
+def matching_rows(matching):
+    """Rows 4 and 5 from phase 11's records: the fused kernel (its ms per
+    patch in the path's batches, its plain version's and its bound summed
+    over the 64^3 raw patch and its stage-1 estimate) and the selection
+    timed alone over a table on those two."""
+    return ({**per_step(matching["fused"][:2], [1, 1]),
+             "ms": sum(matching["path_ms"]),
+             "max_abs_err": max(r["max_abs_err"] for r in matching["fused"]
+                                + [{"max_abs_err": matching[
+                                    "batch_max_abs_err"]}])},
+            per_step(matching["select"][:2], [1, 1]))
+
+
+def _smi_lines():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+
+
+def run_torchrun(n, train_dir, val_dir, job):
+    """Phase 26 (f): ``python3 -m torch.distributed.run --nproc_per_node
+    n`` of the training CLI with ``--data-parallel`` at CARD_BATCH
+    patches a card, each rank through :func:`train_child`; returns the
+    ranks' records, the writing rank's log events and what it wrote."""
+    out = os.path.join(job, "train")
+    spe = N_TRAIN // (CARD_BATCH * n)
+    if spe == 0:
+        fail(f"{n} cards of {CARD_BATCH} patches need a cache of at least "
+             f"{CARD_BATCH * n} patches, not {N_TRAIN}")
+    epochs = -(-CARD_TRAIN_STEPS // spe)
+    args = ["--data-parallel", "--train-cache", train_dir, "--val-cache",
+            val_dir, "--out", out, "--epochs", str(epochs),
+            "--batch-size", str(CARD_BATCH * n), "--exact-cratio-examples",
+            "0"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()),
+           os.path.join(ROOT, "chip_smoke.py"), "--train-child", job, "--",
+           *args]
+    print("torch.distributed.run --nproc_per_node "
+          f"{n} ... train_bm4dnet.main {' '.join(args)}", flush=True)
+    log = os.path.join(job, "torchrun.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=CARD_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None or rc is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-6000:], flush=True)
+        fail(f"torch.distributed.run exited with {rc} after {wall:.1f} s")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(job, f"train_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    sessions = sorted(glob.glob(os.path.join(out, "session-*")))
+    events, ckpts = [], []
+    for s in sessions:
+        with open(os.path.join(s, "log.jsonl")) as f:
+            events += [json.loads(line) for line in f]
+        ckpts += glob.glob(os.path.join(s, "checkpoints", "*"))
+    return {"wall_s": wall, "epochs": epochs, "steps": epochs * spe,
+            "ranks": ranks, "sessions": len(sessions), "events": events,
+            "checkpoints": sorted(os.path.basename(c) for c in ckpts)}
+
+
+def multi_card_path(img, patch, batch, train_dir, val_dir, transform_cfg):
+    """Phase 26: the multi-GPU layer across the machine's cards, one
+    process a card over NCCL; every check held against the same work on
+    one card here. Returns the record."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from exaspim_tpu_torch import parallel as par
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.ops.bm4d import bm4d
+    from exaspim_tpu_torch.pipeline import denoise_volume
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+    from exaspim_tpu_torch.train.state import make_train_step
+    from exaspim_tpu_torch.transforms import build_transform
+
+    n = torch.cuda.device_count()
+    smi = _smi_lines()
+    rec = {"cards": n, "nvidia_smi": smi}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    print(f"(a) every kernel on each of the {n} cards from this process",
+          flush=True)
+    rec["kernels"] = kernels_on_cards(n, img, build_transform(transform_cfg),
+                                      val_dir)
+
+    job = os.path.join(WORK, "cards")
+    shutil.rmtree(job, ignore_errors=True)
+    os.makedirs(job)
+    np.save(os.path.join(job, "img.npy"), img)
+    z = n * MGPU_BM4D_CORE
+    bvol = np.pad(img[:, :MGPU_BM4D_YX, :MGPU_BM4D_YX],
+                  ((0, max(0, z - BLOCK)), (0, 0), (0, 0)),
+                  mode="symmetric")[:z].astype(np.float32)
+    np.save(os.path.join(job, "bm4d.npy"), bvol)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"patch": patch, "batch": batch, "train_dir": train_dir},
+                  f)
+    ctx = mp.start_processes(cards_worker, args=(n, _free_port(), job),
+                             nprocs=n, start_method="spawn", join=False)
+    t_start = time.perf_counter()
+    try:
+        # The one-card references while the processes start; the timed
+        # one-card runs once they wait, idle, for ``go``.
+        model, transform = restore_pipeline(CKPT, dtype=torch.bfloat16,
+                                            device="cuda")
+        predicts = card_predicts(n, patch, batch)
+        refs = {name: predict(img, model, transform, **kw)
+                for name, kw in predicts}
+        halo = par.bm4d_halo(BM_B, BM_W, BM_STEP)
+        ext = np.pad(bvol, ((halo, halo), (0, 0), (0, 0)), mode="reflect")
+        oracle = bm4d(ext, BM_SIGMA, block=BM_B, group=BM_K, step=BM_STEP,
+                      search=BM_W, device="cuda")[halo:-halo].cpu().numpy()
+        state, xb, dp_transform, grads = dp_setup(train_dir)
+        step = make_train_step(0.0, transform=dp_transform)
+        state, loss1 = step(state, *xb)
+        single = {"loss": float(loss1), "grads": grads[0].cpu().numpy(),
+                  "params": _flat_params(state)}
+        del state.apply_gradients, xb
+        grads.clear()
+        while not all(os.path.exists(os.path.join(job, f"ready{r}"))
+                      for r in range(n)):
+            if time.perf_counter() - t_start > CARD_DEADLINE_S or \
+                    ctx.join(timeout=0.05):
+                fail(f"the {n} processes did not get ready")
+        vol = pipe_volume(img)
+        pipe = dict(overlap=OVERLAP, trim=TRIM, slab_z=256,
+                    patch_size="auto")
+        one = {}
+        for tag in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_stream = denoise_volume(vol, model, transform, **pipe)
+            torch.cuda.synchronize()
+            one[f"stream_{tag}_s"] = time.perf_counter() - t0
+        one["stream_profile"] = profile_once(
+            lambda: denoise_volume(vol, model, transform, **pipe),
+            STREAM_KEYS)
+        del model
+        # One card's step at CARD_BATCH, timed as the ranks time theirs.
+        xb = card_batch(train_dir, CARD_BATCH)
+        state, loss = step(state, *xb)
+        one["step_s"] = []
+        for _ in range(CARD_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, *xb)
+            float(loss)
+            one["step_s"].append(time.perf_counter() - t0)
+        del state, xb, step
+        torch.cuda.empty_cache()
+        rec["one_card"] = one
+        with open(os.path.join(job, "go"), "w"):
+            pass
+        print(f"one-card references ready after "
+              f"{time.perf_counter() - t_start:.1f} s; the {n} processes "
+              "run", flush=True)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t_start > CARD_DEADLINE_S:
+                fail(f"the {n} processes did not end within "
+                     f"{CARD_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(job, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rec["ranks"] = ranks
+    rec["processes_s"] = time.perf_counter() - t_start
+    big = dict(np.load(os.path.join(job, "rank0.npz")))
+    card_checks(rec, ranks, big, refs, ref_stream, oracle, single, predicts,
+                vol.shape)
+
+    print("(f) data-parallel training through torch.distributed.run",
+          flush=True)
+    tr = run_torchrun(n, train_dir, val_dir, job)
+    rec["torchrun"] = train_checks(tr, n)
+    return rec
+
+
+def card_checks(rec, ranks, big, refs, ref_stream, oracle, single, predicts,
+                shape):
+    """Phase 26 (b)-(e) and the card figures: the ranks' records against
+    the one-card references; adds the readings to ``rec``."""
+    n, smi = len(ranks), rec["nvidia_smi"]
+    if [r["device"] for r in ranks] != list(range(n)):
+        fail(f"the ranks ran on cards {[r['device'] for r in ranks]}")
+    for name, kw in predicts:  # (b)
+        got = [r[f"{name}_launches"][0] for r in ranks]
+        want = sharded_launches(kw, n)[0]
+        equal = {r[f"{name}_sha"] for r in ranks} == {_sha(refs[name])}
+        print(f"(b) predict_sharded ({name}, patch {kw['patch_size']}, "
+              f"overlap {kw['overlap']}, batch {kw['batch_size']}) over "
+              f"{n} cards: every rank SHA-equal to one card's predict "
+              f"{equal}; nb_conv3d launches per rank {got} (expected "
+              f"{want}); s per rank cold "
+              + ", ".join(f"{r[f'{name}_s']:.4f}" for r in ranks)
+              + ", warm " + ", ".join(f"{r[f'{name}_warm_s']:.4f}"
+                                     for r in ranks), flush=True)
+        if not equal or got != want or \
+                [r[f"{name}_warm_launches"][0] for r in ranks] != want:
+            fail(f"predict_sharded ({name}) across the cards")
+    comm = {}
+    for key in ("halo", "gather"):
+        per = [[s for s, _ in r[f"{key}_calls"]] for r in ranks]
+        nbytes = ranks[0][f"{key}_calls"][0][1]
+        comm[key] = {"ms_per_call": [1e3 * float(np.mean(p)) for p in per],
+                     "bytes_per_call": nbytes, "calls": len(per[0])}
+    rec["comm"] = comm
+
+    # (c) the stream.
+    launches, patches, p = stream_counts(shape, n)
+    one_launches, one_patches, _ = stream_counts(shape, 1)
+    got = [r["stream_cold_launches"][0] for r in ranks]
+    equal = {r[k] for r in ranks for k in ("stream_sha", "stream_warm_sha")} \
+        == {_sha(ref_stream)}
+    voxels = float(np.prod(shape))
+    wall = max(r["stream_warm_s"] for r in ranks)
+    one = rec["one_card"]
+    stream = {"voxels_per_s": voxels / wall,
+              "one_card_voxels_per_s": voxels / one["stream_warm_s"],
+              "speedup": one["stream_warm_s"] / wall,
+              "forwarded_over_output": patches * p ** 3 / voxels,
+              "one_card_forwarded_over_output": one_patches * p ** 3 / voxels,
+              "launches": got, "expected": launches,
+              "cold_s": [r["stream_cold_s"] for r in ranks],
+              "warm_s": [r["stream_warm_s"] for r in ranks]}
+    rec["stream"] = stream
+    print(f"(c) denoise_volume(mesh=) of the {PIPE_N}^3 volume at phase "
+          f"16's defaults: every rank SHA-equal to the one-card stream "
+          f"{equal} (cold and warm); nb_conv3d launches per rank {got} "
+          f"(expected {launches}; one card {one_launches[0]})", flush=True)
+    if not equal or got != launches or \
+            [r["stream_warm_launches"][0] for r in ranks] != launches:
+        fail("denoise_volume(mesh=) across the cards")
+
+    # (d) BM4D.
+    equal = {r["bm4d_sha"] for r in ranks} == {_sha(oracle)}
+    got = [r["bm4d_launches"][0] for r in ranks]
+    print(f"(d) bm4d_sharded {oracle.shape[0]}x{MGPU_BM4D_YX}^2 over {n} "
+          f"cards: bit-equal to bm4d of the reflect-extended volume on one "
+          f"card {equal}; match_topk launches per rank {got}; s per rank "
+          + ", ".join(f"{r['bm4d_s']:.3f}" for r in ranks), flush=True)
+    if not equal or got != [2] * n:
+        fail("bm4d_sharded across the cards")
+
+    # (e) the data-parallel step.
+    g_err = float(np.linalg.norm(big["dp_grads"] - single["grads"])
+                  / np.linalg.norm(single["grads"]))
+    dp = np.abs(big["dp_params"] - single["params"])
+    dp_rec = {
+        "loss_rel": abs(ranks[0]["dp_loss"] - single["loss"])
+        / abs(single["loss"]),
+        "grad_rel_l2": g_err, "param_max_abs": float(dp.max()),
+        "param_share_apart": float(np.mean(dp > 1e-6)),
+        "ranks_equal": len({r["dp_params_sha"] for r in ranks}) == 1,
+        "launches": [r["dp_launches"] for r in ranks]}
+    rec["dp_step"] = dp_rec
+    print(f"(e) one data-parallel step, {n} cards x {ranks[0]['dp_share']} "
+          f"against one step of {DP_BATCH} on one card: loss rel "
+          f"{dp_rec['loss_rel']:.3e} (<= {DP_LOSS_RTOL}), gradient rel L2 "
+          f"{g_err:.3e} (<= {DP_GRAD_REL_L2}), params max |d| "
+          f"{dp_rec['param_max_abs']:.3e} (<= {DP_PARAM_ATOL:.4g}), apart "
+          f"by > 1e-6 {dp_rec['param_share_apart']:.4%} (<= "
+          f"{DP_FLIP_SHARE:.1%}); params bit-equal across the cards "
+          f"{dp_rec['ranks_equal']}; launches per rank (conv, dL/dW) "
+          f"{dp_rec['launches']}", flush=True)
+    if not dp_rec["ranks_equal"] or \
+            dp_rec["launches"] != [[35, 18]] * n:
+        fail("the data-parallel step across the cards")
+    if not (dp_rec["loss_rel"] <= DP_LOSS_RTOL
+            and g_err <= DP_GRAD_REL_L2
+            and dp_rec["param_max_abs"] <= DP_PARAM_ATOL
+            and dp_rec["param_share_apart"] <= DP_FLIP_SHARE):
+        fail(f"the data-parallel step strays from the single step: {dp_rec}")
+
+    # The figures, one line a card.
+    one_step = float(np.median(one["step_s"]))
+    print(f"figures (host clock; every rank returns the whole volume): "
+          f"stream {stream['voxels_per_s']:.1f} voxels/s on {n} cards "
+          f"(the slowest rank's warm run) against "
+          f"{stream['one_card_voxels_per_s']:.1f} on one card in this run "
+          f"({stream['speedup']:.3f}x); forwarded voxels / output voxels "
+          f"{stream['forwarded_over_output']:.4f} on {n} cards, "
+          f"{stream['one_card_forwarded_over_output']:.4f} on one; one "
+          f"card's stream {_profile_text(one['stream_profile'])}; one "
+          f"card's step at {CARD_BATCH} {one_step:.4f} s (median of "
+          f"{one['step_s']})", flush=True)
+    for r, line in zip(ranks, smi):
+        prof = r["profile"]
+        nccl = (f"{1e3 * prof['by_key']['nccl'][0] / CARD_PROFILED_STEPS:.3f}"
+                f" ms a step ({prof['by_key']['nccl'][1]} kernels in "
+                f"{CARD_PROFILED_STEPS} steps), idle share "
+                f"{prof['idle_share']:.3f}" if prof
+                else "not measured (no device time traced)")
+        print(f"  card {r['device']} ({line}): halo exchange "
+              f"{comm['halo']['ms_per_call'][r['rank']]:.3f} ms a call "
+              f"({comm['halo']['bytes_per_call'] / 2 ** 20:.1f} MiB each "
+              f"way), gather_z {comm['gather']['ms_per_call'][r['rank']]:.3f}"
+              f" ms a call ({comm['gather']['bytes_per_call'] / 2 ** 20:.1f}"
+              f" MiB in); stream warm {r['stream_warm_s']:.3f} s, "
+              f"{_profile_text(r['stream_profile'])}; DP step at "
+              f"{CARD_BATCH} a card {float(np.median(r['step_s'])):.4f} s "
+              f"(median of {r['step_s']}); the all-reduce's NCCL kernels "
+              + nccl, flush=True)
+
+
+def _profile_text(p):
+    if p is None:
+        return "profile: no device time traced (not measured)"
+    return (f"profiled {p['wall_s']:.3f} s: device busy "
+            f"{p['device_busy_s']:.3f} s, idle share {p['idle_share']:.3f}; "
+            + ", ".join(f"{k} {1e3 * s:.1f} ms ({c})"
+                        for k, (s, c) in p["by_key"].items()))
+
+
+def train_checks(tr, n):
+    """Phase 26 (f): the ranks of the torchrun run trained over NCCL, one
+    card each; the launches per rank; one writer; losses finite and
+    falling."""
+    steps = tr["steps"]
+    n_val = -(-N_VAL // (CARD_BATCH * n))
+    want = [{"nb_conv3d": 35 * steps + (18 * n_val if r == 0 else 0),
+             "nb_conv3d_dw": 18 * steps,
+             "chunk_byte_histograms": n_val if r == 0 else 0,
+             "byte_histogram": 0} for r in range(n)]
+    got = [r["launches"] for r in tr["ranks"]]
+    train = [e for e in tr["events"] if e["event"] == "train"]
+    losses = [e["loss"] for e in train]
+    step_s = [e["step_time_s"] for e in train if "step_time_s" in e]
+    tr["losses"], tr["step_s"] = losses, step_s
+    ok_ranks = all(r["backend"] == "nccl" and r["world"] == n
+                   and r["device"] == r["local_rank"] == r["rank"]
+                   and r["mesh"] and r["primary"] == (r["rank"] == 0)
+                   for r in tr["ranks"])
+    print(f"(f) {steps} steps at {CARD_BATCH} a card (global "
+          f"{CARD_BATCH * n}) in {tr['wall_s']:.1f} s from the launch: "
+          f"ranks on their own cards over NCCL, rank 0 alone writing "
+          f"{ok_ranks}; losses {losses}; step s (rank 0's log, host clock "
+          f"between steps, loader included) {step_s}; launches per rank "
+          f"{got} (expected {want}); {tr['sessions']} session, "
+          f"checkpoints {tr['checkpoints']}", flush=True)
+    if not ok_ranks or got != want:
+        fail("torch.distributed.run data-parallel training: ranks or "
+             "launches")
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or \
+            not np.mean(losses[-3:]) < losses[0]:
+        fail(f"torch.distributed.run data-parallel training: losses "
+             f"{losses} (one log line a step, finite, falling)")
+    if tr["sessions"] != 1 or not tr["checkpoints"] or not any(
+            e["event"] == "val" for e in tr["events"]):
+        fail("torch.distributed.run data-parallel training: the writing "
+             "rank's session, validation and checkpoints")
+    return tr
+
+
+CARD_SOURCES = {
+    "nb_conv3d": ("exaspim_tpu_torch/csrc/nb_conv3d.cu",
+                  "exaspim_tpu/ops/nb_conv.py:358"),
+    "nb_conv3d (statistics)": ("exaspim_tpu_torch/csrc/nb_conv3d.cu",
+                               "exaspim_tpu/ops/nb_conv.py:358"),
+    "nb_conv3d_dw": ("exaspim_tpu_torch/csrc/nb_conv3d_dw.cu",
+                     "exaspim_tpu/ops/nb_conv.py:448"),
+    "bm4d_match_topk": ("exaspim_tpu_torch/csrc/bm4d_match.cu",
+                        "exaspim_tpu/ops/pallas_bm4d.py:53"),
+    "bm4d_select": ("exaspim_tpu_torch/csrc/bm4d_select.cu",
+                    "exaspim_tpu/ops/pallas_bm4d.py:126"),
+    "byte_histogram": ("exaspim_tpu_torch/csrc/byte_histogram.cu",
+                       "exaspim_tpu/compression/proxy.py:58"),
+    "chunk_byte_histograms": ("exaspim_tpu_torch/csrc/byte_histogram.cu",
+                              "exaspim_tpu/compression/proxy.py:58"),
+    "asinh_forward": ("exaspim_tpu_torch/csrc/asinh_transform.cu",
+                      "exaspim_tpu/ops/pallas_ops.py:70"),
+    "asinh_inverse": ("exaspim_tpu_torch/csrc/asinh_transform.cu",
+                      "exaspim_tpu/ops/pallas_ops.py:99"),
+    "blocked_conv3d": ("exaspim_tpu_torch/csrc/blocked_conv3d.cu",
+                       "exaspim_tpu/ops/pallas_conv.py:117"),
+}
+
+
+def card_rows(recs):
+    """(name, row, record) of each kernel entry, from card 0's records of
+    phase 26 (a), as the one-card kernels line reads phases 7-14's."""
+    fused, select = matching_rows(recs["rows 4-5"]["record"])
+    hist = recs["row 6"]["record"]["validation batch"]
+    asinh = recs["row 7"]["record"]
+    times = recs["row 8"]["record"]
+    return [("nb_conv3d", "row 1", recs["row 1"]["record"]),
+            ("nb_conv3d (statistics)", "row 2", recs["row 2"]["record"]),
+            ("nb_conv3d_dw", "row 3", recs["row 3"]["record"]),
+            ("bm4d_match_topk", "rows 4-5", fused),
+            ("bm4d_select", "rows 4-5", select),
+            ("byte_histogram", "row 6", hist),
+            ("chunk_byte_histograms", "row 6", hist["chunk_entry"]),
+            ("asinh_forward", "row 7", asinh["asinh_forward"]),
+            ("asinh_inverse", "row 7", asinh["asinh_inverse"]),
+            ("blocked_conv3d", "row 8", per_step(times, [1] * len(times)))]
+
+
+def card_launches(mc):
+    """Each kernel entry of phase 26 (a) with its launches per rank on
+    phase 26's paths. The conv wrapper counts its two modes (rows 1 and 2)
+    in one count, which row 1 carries; row 2 names it (``counted_with``).
+    ``bm4d_select`` runs inside the fused matcher's launches (row 4) and is
+    never launched alone on these paths: no count of its own."""
+    ranks, tr = mc["ranks"], mc["torchrun"]["ranks"]
+    conv = {k: [r[f"{k}_launches"][0] for r in ranks]
+            for k in ("canvas", "scatter", "stream_cold", "dp")}
+    conv["train"] = [r["launches"]["nb_conv3d"] for r in tr]
+    per = {
+        "nb_conv3d": conv,
+        "nb_conv3d_dw": {"dp": [r["dp_launches"][1] for r in ranks],
+                         "train": [r["launches"]["nb_conv3d_dw"]
+                                   for r in tr]},
+        "bm4d_match_topk": {"bm4d_sharded": [r["bm4d_launches"][0]
+                                             for r in ranks]},
+        "chunk_byte_histograms": {"train": [
+            r["launches"]["chunk_byte_histograms"] for r in tr]},
+        "byte_histogram": {"train": [r["launches"]["byte_histogram"]
+                                     for r in tr]},
+        "asinh_forward": {}, "asinh_inverse": {}, "blocked_conv3d": {},
+    }
+    out = []
+    for name, row, rec in card_rows(mc["kernels"]):
+        src, rep = CARD_SOURCES[name]
+        k = {"name": name, "route": "cuda", "source": src, "replaces": rep}
+        if name in per:
+            k["launches"] = sum(sum(v) for v in per[name].values())
+            k["launches_per_rank"] = per[name]
+        elif name == "nb_conv3d (statistics)":
+            k.update(launches=None, launches_per_rank=None,
+                     counted_with="nb_conv3d")
+        else:
+            k.update(launches=None, launches_per_rank=None,
+                     runs_inside="bm4d_match_topk")
+        k.update({key: rec[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+        k["checked_at"] = mc["kernels"][row]["checked_at"]
+        k["bits_equal_across_cards"] = mc["kernels"][row][
+            "bits_equal_across_cards"]
+        out.append(k)
+    return out
+
+
+def multi_card_main(record, kind):
+    """``--multi-card``: after the device and build phases, phase 26 alone
+    (its block, its caches and the record); prints the kernels' line of
+    its paths and the last line."""
+    import torch
+
+    from exaspim_tpu_torch.data.synthetic import (
+        neurite_phantom,
+        noisy_observation,
+    )
+    from exaspim_tpu_torch.inference import plan_tiling
+    from exaspim_tpu_torch.train.checkpoint import load_checkpoint
+
+    patch, batch = plan_tiling((BLOCK,) * 3, OVERLAP)
+    img = noisy_observation(neurite_phantom((BLOCK,) * 3, n_tubes=24,
+                                            seed=0)[0], seed=1)
+    transform_cfg = load_checkpoint(CKPT)["transform"]
+    train_dir, val_dir = make_caches(transform_cfg)
+    phase(CARDS_PHASE)
+    try:
+        record["multi_card"] = mc = multi_card_path(
+            img, patch, batch, train_dir, val_dir, transform_cfg)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+        shutil.rmtree(CACHES, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_record.json"), "w") as f:
+        json.dump(record, f, indent=1, default=float)
+    # Each kernel of (a): its checks and times on card 0 at the shape
+    # named, and its launches per rank on phase 26's paths.
+    print(json.dumps({"kernels": card_launches(mc)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+CARDS_PHASE = "multi-GPU across cards over NCCL (one process a card)"
+
+
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child(sys.argv[2], sys.argv[4:])
+    multi = sys.argv[1:] == ["--multi-card"]
+    if sys.argv[1:] and not multi:
+        print("usage: python3 chip_smoke.py [--multi-card]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 2
@@ -3808,16 +4699,20 @@ def main():
 
     record = {}
     phase("device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    smi_all = _smi_lines()
+    smi = smi_all[0]
+    for line in smi_all:
+        print(line, flush=True)
     kind = torch.cuda.get_device_name(0)
+    n_cards = torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {kind}", flush=True)
-    record["nvidia_smi"] = smi
+          f"python {sys.version.split()[0]} device {kind} x {n_cards}",
+          flush=True)
+    record["nvidia_smi"], record["nvidia_smi_all"] = smi, smi_all
+    if multi and n_cards < 2:
+        print(f"--multi-card needs at least 2 cards; this machine has "
+              f"{n_cards}", file=sys.stderr)
+        return 2
 
     phase("build")
     t0 = time.time()
@@ -3854,6 +4749,8 @@ def main():
                   if re.search(r"[1-9][0-9]* bytes spill", ln)]
         if spills:
             fail(f"{name} spills registers: {spills}")
+    if multi:
+        return multi_card_main(record, kind)
 
     phase("kernel vs plain")
     from exaspim_tpu_torch.ops import nb_conv as nc
@@ -4148,6 +5045,16 @@ def main():
     record["multi_gpu"] = mgpu = multi_gpu_path(gloo, img, patch, batch,
                                                 train_dir, val_dir)
     shutil.rmtree(WORK, ignore_errors=True)
+
+    phase(CARDS_PHASE)
+    if n_cards >= 2:
+        record["multi_card"] = multi_card_path(img, patch, batch, train_dir,
+                                               val_dir, transform_cfg)
+        shutil.rmtree(WORK, ignore_errors=True)
+    else:
+        print(f"not run: it needs at least 2 cards and this machine has "
+              f"{n_cards} (python3 chip_smoke.py --multi-card runs it "
+              "alone)", flush=True)
     shutil.rmtree(CACHES, ignore_errors=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4233,11 +5140,7 @@ def main():
         "source": "exaspim_tpu_torch/csrc/bm4d_match.cu",
         "replaces": "exaspim_tpu/ops/pallas_bm4d.py:53",
         "launches": teach["match_topk"],
-        **{**per_step(matching["fused"][:2], [1, 1]),
-           "ms": sum(matching["path_ms"]),
-           "max_abs_err": max(r["max_abs_err"] for r in matching["fused"]
-                              + [{"max_abs_err": matching[
-                                  "batch_max_abs_err"]}])},
+        **matching_rows(matching)[0],
     }, {
         "name": "bm4d_match_topk",
         "path": "teachers",
@@ -4247,7 +5150,7 @@ def main():
                     "kernel's selection, bm4d_select.cuh, over a table)",
         "replaces": "exaspim_tpu/ops/pallas_bm4d.py:126",
         "launches": teach["match_topk"],
-        **per_step(matching["select"][:2], [1, 1]),
+        **matching_rows(matching)[1],
     }] + [{
         "name": name,
         "path": "elementwise",
@@ -4321,6 +5224,15 @@ def main():
                 # The new shapes of (d) at the block's batch, per batch.
                 k["reference_new_shapes"] = per_step(ref["conv_checks"],
                                                       ref["conv_counts"])
+    if "multi_card" in record:
+        # Phase 26: each row's launches per rank on the paths across cards.
+        across = {k["name"]: k["launches_per_rank"]
+                  for k in card_launches(record["multi_card"])}
+        for k in kernels:
+            name = {"nb_conv3d (inference path)": "nb_conv3d"}.get(
+                k["name"], k["name"])
+            if name in across:
+                k["multi_card_launches"] = across[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -316,12 +316,23 @@ __global__ void __launch_bounds__(THREADS_MAX, 2)
 template <int BT, int ST, int TYT, int D, int SYT, int SZT, bool TABLE>
 int launch(const Params& p, size_t shared, int threads, cudaStream_t s) {
   auto kernel = bm4d_match_kernel<BT, ST, TYT, D, SYT, SZT, TABLE>;
-  static size_t allowed = 48 * 1024;  // per instance
-  if (shared > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  // The dynamic shared memory this instance may use, per device (0: the
+  // default 48 KB): the attribute belongs to the current device, so a
+  // process that launches on several cards raises it on each. A size, not
+  // smem_attr.cuh's bit: an instance asks for what the call's tile plan
+  // needs (its pitches), which differs between calls, and each increase
+  // has to be allowed.
+  static size_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  size_t& limit = allowed[dev & 63];
+  if (shared > 48 * 1024 && shared > limit) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shared);
     if (e != cudaSuccess) return (int)e;
-    allowed = shared;
+    limit = shared;
   }
   const unsigned blocks =
       (unsigned)p.n * p.gz * p.tiles_y * (unsigned)p.tiles_x;

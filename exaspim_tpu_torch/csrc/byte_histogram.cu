@@ -40,6 +40,7 @@
 #include <algorithm>
 
 #include "byte_histogram.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -195,21 +196,13 @@ __global__ void __launch_bounds__(THREADS)
   cluster_write<2>(part, out + chunk * 512);
 }
 
-// Dynamic shared memory above 48 KB has to be allowed once per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 cudaError_t rows(const uint8_t* data, long long n, long long len, float* out,
                  cudaStream_t s) {
   const int cs = pow2_at_most((len + ROW_SHARE - 1) / ROW_SHARE);
   constexpr size_t smem = smem_bytes(ROW_COUNTERS, 1);
-  static const cudaError_t ok =
-      allow_smem(byte_histogram_rows_kernel<ROW_COUNTERS>, smem);
+  static unsigned long long done = 0;
+  const cudaError_t ok =
+      allow_smem(byte_histogram_rows_kernel<ROW_COUNTERS>, smem, done);
   if (ok != cudaSuccess) return ok;
   return launch(byte_histogram_rows_kernel<ROW_COUNTERS>, n * cs, cs, smem, s,
                 data, len, out);
@@ -229,9 +222,9 @@ cudaError_t chunks(const int* vols, long long b, int Z, int Y, int X, int c,
   if (e != cudaSuccess) return e;
   const int cs = pow2_at_most(std::min<long long>(2LL * sms / n, c));
   constexpr size_t smem = smem_bytes(CHUNK_COUNTERS, 2);
-  static const cudaError_t ok =
-      allow_smem(byte_histogram_chunks_kernel<CHUNK_COUNTERS, V>, smem);
-  if (ok != cudaSuccess) return ok;
+  static unsigned long long done = 0;  // per instance V
+  e = allow_smem(byte_histogram_chunks_kernel<CHUNK_COUNTERS, V>, smem, done);
+  if (e != cudaSuccess) return e;
   return launch(byte_histogram_chunks_kernel<CHUNK_COUNTERS, V>, n * cs, cs,
                 smem, s, vols, Z, Y, X, c, Z / c, Y / c, X / c, out);
 }

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int CK = 32;       // channels per chunk (4 groups of 8)
@@ -139,21 +141,6 @@ __device__ __forceinline__ void load_halo(uint32_t hb, const uint16_t* xs,
            : xs;
     cp_async16(hb + (c8 * HV + hv) * 16, src, ok);
   }
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device (bit `dev`
-// of `done`); later launches skip the driver call.
-template <typename K>
-cudaError_t allow_smem(K k, int bytes, unsigned long long& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess) done |= bit;
-  return e;
 }
 
 }  // namespace

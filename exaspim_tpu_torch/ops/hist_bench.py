@@ -49,6 +49,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM
 CHUNK, VAL_BATCH = 64, 32
 
 
+def _capture_stream():
+    """A side stream of the current device to capture on. torch's default
+    capture stream is made once per process, on the device current at the
+    first capture; captured on a later device, the wrappers launch on that
+    device's own stream outside the capture and the capture fails."""
+    return torch.cuda.Stream()
+
+
 def _timers(device, reps):
     """``(graph_ms, wrapper_ms)`` of a call ``fn``; on the CPU both are
     host-clock means."""
@@ -76,7 +84,7 @@ def _timers(device, reps):
         fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=_capture_stream()):
             for _ in range(reps):
                 fn()
         graph.replay()
@@ -133,7 +141,7 @@ def device_ops(fn):
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=_capture_stream()):
         fn()
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)

@@ -1,9 +1,16 @@
 """The collectives of the sharded paths, on either backend.
 
-NCCL moves device tensors directly. Gloo moves host tensors, so a CUDA
-tensor under gloo (processes that share a card, or a host without NCCL)
-is staged through host memory and copied back; CPU tensors move as they
-are.
+NCCL moves device tensors directly, card to card. Gloo moves host
+tensors, so a CUDA tensor under gloo (processes that share a card, or a
+host without NCCL) is staged through host memory and copied back; CPU
+tensors move as they are.
+
+Stream order under NCCL: each call enqueues its transfers on NCCL's own
+stream, which first waits for the compute stream (the slab's planes are
+written before they are sent), and waits for them before it returns, so
+the compute stream reads a received halo only after it has arrived. The
+group records every buffer on NCCL's stream, so the caching allocator
+hands none of them out again while a transfer may still touch it.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ def exchange_halos(slab, halo, group):
     """``(from_above, from_below)``: the last ``halo`` planes (dim 0) of
     the previous rank's slab and the first ``halo`` of the next rank's.
     A rank at the end of the group gets zeros there, as ``ppermute``
-    gives."""
+    gives. A middle rank sends and receives on both sides in one
+    ``batch_isend_irecv``. Every rank of the group must call it (the
+    first point-to-point call of an NCCL group is collective)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     staged = _staged(slab, group)
 

@@ -39,8 +39,10 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     ``coordinator_address`` (``"host:port"``), ``num_processes`` and
     ``process_id`` take the place of torchrun's ``MASTER_ADDR`` /
     ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``. On ``device="cuda"`` the
-    process's card becomes the current CUDA device: ``local_device_ids[0]``
-    when given, else ``LOCAL_RANK`` (default 0). ``backend`` defaults to
+    process's card becomes the current CUDA device, before the group is
+    joined: ``local_device_ids[0]`` when given, else ``LOCAL_RANK`` (default
+    0); an NCCL group is bound to that card (``device_id``), so its
+    communicator is built at once. ``backend`` defaults to
     :func:`default_backend` of ``device`` (``nccl`` on the card, ``gloo`` on
     the CPU); the code never switches backends on its own.
 
@@ -66,6 +68,8 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
             "of processes and this process's id (arguments or torchrun's "
             "MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK); got "
             f"{coordinator_address!r}, {num_processes!r}, {process_id!r}")
+    backend = backend or default_backend(device)
+    bind = {}
     if torch.device(device).type == "cuda":
         local = (int(local_device_ids[0]) if local_device_ids
                  else int(env.get("LOCAL_RANK", 0)))
@@ -74,10 +78,13 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
                 f"local device {local} but this host has "
                 f"{torch.cuda.device_count()} CUDA devices")
         torch.cuda.set_device(local)
+        if backend == "nccl":
+            # Bound to its card, the group builds its NCCL communicator
+            # here, not lazily inside the first (timed) collective.
+            bind["device_id"] = torch.device("cuda", local)
     dist.init_process_group(
-        backend=backend or default_backend(device),
-        init_method=f"tcp://{coordinator_address}",
-        world_size=int(num_processes), rank=int(process_id),
+        backend=backend, init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id), **bind,
     )
     return True
 

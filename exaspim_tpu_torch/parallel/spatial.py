@@ -5,9 +5,9 @@ is split into one slab per rank of a 1-D mesh; each rank receives the
 ``patch`` planes next to its slab from each neighbour (zeros at the ends
 of the volume, as ``ppermute`` gives and as the single-device path pads),
 runs the tiled engine over its haloed slab with trim masks taken in
-global coordinates, and crops its core. The cores are then gathered, so
-every rank returns the whole volume, as the JAX package's
-multi-controller path does.
+global coordinates, and crops its core. The cores are then gathered and
+mapped back to counts, so every rank returns the whole volume, as the
+JAX package's multi-controller path does.
 
 Exactness: each rank evaluates every patch of the global grid that
 touches its core, and no other, with the full patch context, and each
@@ -182,8 +182,12 @@ def predict_sharded(img, model, transform, mesh, patch_size=64, overlap=12,
                 model, _haloed(slab, halo, group), local, glob, img.shape,
                 P, batch_size, trim)
             accum, wgt = accum[halo:halo + core], wgt[halo:halo + core]
-        out = (accum / (wgt + 1e-8))[:, :Y, :X]
+        # The cores are gathered in the model's domain and every rank maps
+        # the whole volume back to counts, as the JAX package does after
+        # its all-gather: the inverse then runs on the tensor one predict
+        # maps (on the CPU torch's vectorized sinh and its scalar tail
+        # differ by an ulp, so cores mapped apart would not be bit-equal).
+        out = gather_z((accum / (wgt + 1e-8))[:, :Y, :X], group)
         out = (transform.inverse_float(out) if return_float
-               else transform.inverse_counts(out))
-        out = gather_z(out, group).cpu().numpy()
+               else transform.inverse_counts(out)).cpu().numpy()
     return out if return_float else out.astype(np.uint16)

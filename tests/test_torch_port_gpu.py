@@ -905,3 +905,83 @@ def test_worker_processes_on_the_card(tmp_path):
     live = TrainDataset(patch_shape=(32, 32, 32), device="cuda")
     with pytest.raises(ValueError, match="torch ops"):
         DataLoader(live, 2, make_count_train_collate(), num_workers=2)
+
+
+@pytest.mark.gpu
+def test_kernels_on_two_cards_in_one_process():
+    """The dynamic shared memory a kernel may use is a setting of each
+    device: one process that launches on cuda:0 and then on cuda:1 must
+    raise it on both (the fused matcher and the chunk histogram take more
+    than 48 KB, as do the conv and its dL/dW). Each kernel's output on
+    cuda:1 is bit-equal to its output on cuda:0."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards in one process")
+    from exaspim_tpu_torch.compression.proxy import (
+        byte_histogram,
+        chunk_byte_histograms,
+    )
+    from exaspim_tpu_torch.ops.bm4d_match import match_topk
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_dw
+
+    rng = np.random.default_rng(14)
+    guides = torch.from_numpy(_rand(rng, (2, 64, 64, 64), 20.0) + 100.0)
+    counts = torch.from_numpy(rng.poisson(300.0, (2, 64, 64, 64)).astype(
+        np.int32))
+    rows = torch.from_numpy(rng.integers(0, 256, (4, 70000), np.uint8))
+    x = torch.from_numpy(_rand(rng, (2, 16, 16, 16, 32))).to(torch.bfloat16)
+    k = torch.from_numpy(_rand(rng, (3, 3, 3, 32, 32), 0.05)).to(
+        torch.bfloat16)
+    g = torch.from_numpy(_rand(rng, (2, 16, 16, 16, 32), 0.1)).to(
+        torch.bfloat16)
+    calls = {
+        "match_topk": (match_topk, (guides,)),
+        "chunk_byte_histograms": (chunk_byte_histograms, (counts,)),
+        "byte_histogram": (byte_histogram, (rows,)),
+        "nb_conv3d": (nb_conv3d_stats, (x, k)),
+        "nb_conv3d_dw": (nb_conv3d_dw, (x, g)),
+    }
+    for name, (fn, args) in calls.items():
+        before = fn.launches if hasattr(fn, "launches") else nb_conv3d.launches
+        outs = []
+        for dev in ("cuda:0", "cuda:1"):
+            with torch.no_grad():
+                out = fn(*(a.to(dev) for a in args))
+            out = out if isinstance(out, tuple) else (out,)
+            assert all(o.device == torch.device(dev) for o in out), name
+            torch.cuda.synchronize(dev)
+            outs.append([o.cpu() for o in out])
+        after = fn.launches if hasattr(fn, "launches") else nb_conv3d.launches
+        assert after == before + 2, name
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_histogram_graph_capture_on_two_cards_in_one_process():
+    """``hist_bench.device_ops`` and its graph timer capture a call on the
+    current device: after a capture on cuda:0, the same process captures
+    the byte-histogram entries on cuda:1 as one kernel node each (torch's
+    default capture stream belongs to the device of the first capture)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards in one process")
+    from exaspim_tpu_torch.compression.proxy import (
+        byte_histogram,
+        chunk_byte_histograms,
+    )
+    from exaspim_tpu_torch.ops import hist_bench as hb
+
+    rng = np.random.default_rng(26)
+    counts = rng.poisson(300.0, (2, 64, 64, 64)).astype(np.int32)
+    for i in range(2):
+        with torch.cuda.device(i):
+            vols = torch.from_numpy(counts).cuda()
+            rows = hb._rows(vols, 64)
+            for name, fn in (
+                    ("byte_histogram", lambda: byte_histogram(rows)),
+                    ("chunk_byte_histograms",
+                     lambda: chunk_byte_histograms(vols, 64))):
+                ops = hb.device_ops(fn)
+                assert len(ops) == 1 and ops[0][0] == "kernel", (i, name, ops)
+                assert "byte_histogram" in ops[0][1], (i, name, ops)
+                graph_ms, _ = hb._timers("cuda", 5)
+                assert graph_ms(fn) > 0.0, (i, name)
