@@ -1,0 +1,8 @@
+"""Share of the traced window in which no operation ran on the device:
+one less the union of the device's intervals over the host's wall, in %."""
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

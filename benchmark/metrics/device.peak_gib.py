@@ -1,0 +1,6 @@
+"""Peak device memory allocated in the window (``max_memory_allocated``
+after ``reset_peak_memory_stats`` at its start), GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes else None
