@@ -39,6 +39,8 @@ import threading
 import numpy as np
 import torch
 
+from exaspim_tpu_torch.utils.profiling import span
+
 __all__ = [
     "DataLoader",
     "make_count_train_collate",
@@ -324,8 +326,9 @@ class DataLoader:
                 yield first
             while pending:
                 fut, slot = pending.popleft()
-                batch = _unpack(fut.result(), self._slots,
-                                slot * self._slot_bytes)
+                with span("loader.wait"):
+                    packed = fut.result()
+                batch = _unpack(packed, self._slots, slot * self._slot_bytes)
                 free.append(slot)
                 submit()
                 yield batch
@@ -354,7 +357,8 @@ class DataLoader:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         while True:
-            item = q.get()
+            with span("loader.wait"):
+                item = q.get()
             if item is self._STOP:
                 break
             if isinstance(item, BaseException):
@@ -369,8 +373,9 @@ def prefetch_to_device(iterator, size=2, device="cuda"):
     buf = collections.deque()
 
     def put(batch):
-        return tuple(to_tensor(a, device) if isinstance(a, np.ndarray) else a
-                     for a in batch)
+        with span("loader.upload"):
+            return tuple(to_tensor(a, device) if isinstance(a, np.ndarray)
+                         else a for a in batch)
 
     it = iter(iterator)
     for batch in it:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from exaspim_tpu_torch.utils.profiling import span
+
 __all__ = [
     "predict",
     "predict_patch",
@@ -130,16 +132,17 @@ def _patch_batches(model, x, starts, global_starts, global_shape, patch,
     global_starts = _pad_starts(np.asarray(global_starts), batch)
     for i in range(0, len(starts), batch):
         sb = starts[i:i + batch]
-        patches = torch.stack([
-            x[z:z + P, y:y + P, w:w + P] for z, y, w in sb.tolist()
-        ])
-        pred = model(patches[..., None])[..., 0].float()
-        if clip is not None:
-            pred = torch.clamp(pred, *clip)
-        mask = torch.stack([
-            trim_weight_mask(g, P, trim, global_shape, x.device)
-            for g in global_starts[i:i + batch]
-        ])
+        with span("inference.forward"):
+            patches = torch.stack([
+                x[z:z + P, y:y + P, w:w + P] for z, y, w in sb.tolist()
+            ])
+            pred = model(patches[..., None])[..., 0].float()
+            if clip is not None:
+                pred = torch.clamp(pred, *clip)
+            mask = torch.stack([
+                trim_weight_mask(g, P, trim, global_shape, x.device)
+                for g in global_starts[i:i + batch]
+            ])
         keep = min(batch, n - i)
         yield sb[:keep], (pred * mask)[:keep], mask[:keep]
 
@@ -164,9 +167,10 @@ def tiled_accumulate(model, vol, starts, global_starts, global_shape, patch,
     for sb, pred, mask in _patch_batches(model, vol, starts, global_starts,
                                          global_shape, patch, batch, trim,
                                          clip):
-        for (z, y, x), p, m in zip(sb.tolist(), pred, mask):
-            accum[z:z + P, y:y + P, x:x + P] += p
-            wgt[z:z + P, y:y + P, x:x + P] += m
+        with span("inference.stitch"):
+            for (z, y, x), p, m in zip(sb.tolist(), pred, mask):
+                accum[z:z + P, y:y + P, x:x + P] += p
+                wgt[z:z + P, y:y + P, x:x + P] += m
     return accum, wgt
 
 
@@ -263,14 +267,17 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
                                                 clip):
                 preds.append(pred)
                 masks.append(mask)
-            accum = _parity_canvas(torch.cat(preds), grid_dims, stride, P,
-                                   padded)
-            wgt = _parity_canvas(torch.cat(masks), grid_dims, stride, P,
-                                 padded)
-        out = (accum / (wgt + 1e-8))[:shape[0], :shape[1], :shape[2]]
-        if return_float:
-            return transform.inverse_float(out)
-        return transform.inverse(out)
+        with span("inference.stitch"):
+            if P <= 2 * stride:
+                accum = _parity_canvas(torch.cat(preds), grid_dims, stride,
+                                       P, padded)
+                wgt = _parity_canvas(torch.cat(masks), grid_dims, stride, P,
+                                     padded)
+            out = (accum / (wgt + 1e-8))[:shape[0], :shape[1], :shape[2]]
+            if return_float:
+                return transform.inverse_float(out)
+        with span("inference.download"):  # the counts' DtoH and uint16 cast
+            return transform.inverse(out)
 
     return program, starts
 
@@ -318,10 +325,16 @@ def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
         model, transform, img.shape, patch_size, overlap, trim, batch_size,
         return_float=return_float, output_clip=output_clip,
     )
-    raw = torch.from_numpy(np.asarray(img, dtype=np.float32)).to(device)
+    with span("inference.cast"):
+        raw = np.asarray(img, dtype=np.float32)
+    with span("inference.upload"):
+        raw = torch.from_numpy(raw).to(device)
     with torch.inference_mode():
         out = program(raw, starts)
-    return out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    if not isinstance(out, torch.Tensor):
+        return out
+    with span("inference.download"):
+        return out.cpu().numpy()
 
 
 def plan_stream_cores(shape, patch_size, overlap, max_device_voxels):

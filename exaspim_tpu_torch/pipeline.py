@@ -26,6 +26,7 @@ import numpy as np
 from exaspim_tpu_torch.inference import plan_stream_cores, plan_tiling, predict
 from exaspim_tpu_torch.parallel.multihost import is_primary
 from exaspim_tpu_torch.utils import img_io
+from exaspim_tpu_torch.utils.profiling import span
 
 __all__ = ["denoise_volume"]
 
@@ -97,130 +98,139 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
     returns the assembled volume; only the primary rank writes
     ``output_path``.
     """
-    src = img_io.read(img) if isinstance(img, str) else img
-    shape = tuple(int(d) for d in src.shape[-3:])
-    Z, Y, X = shape
-    if patch_size == "auto":
-        # Plan on the slab geometry (z capped at the slab height); the same
-        # patch is used for every slab, so the global stride grid, and with
-        # it seam exactness, is preserved.
-        patch_size, batch_size = plan_tiling(
-            (min(Z, int(slab_z)), Y, X), overlap
-        )
-    halo = patch_size
-    slab_z = max(int(slab_z), patch_size)
-    if max_block_voxels is not None:
-        cores = plan_stream_cores(
-            shape, patch_size, overlap, int(max_block_voxels)
-        )
-        cores = (min(cores[0], slab_z), cores[1], cores[2])
-    else:
-        cores = (slab_z, Y, X)
-    plan = _tile_plan(shape, cores, halo, patch_size - overlap)
+    with span("pipeline.volume"):
+        src = img_io.read(img) if isinstance(img, str) else img
+        shape = tuple(int(d) for d in src.shape[-3:])
+        Z, Y, X = shape
+        if patch_size == "auto":
+            # Plan on the slab geometry (z capped at the slab height); the
+            # same patch is used for every slab, so the global stride grid,
+            # and with it seam exactness, is preserved.
+            patch_size, batch_size = plan_tiling(
+                (min(Z, int(slab_z)), Y, X), overlap
+            )
+        halo = patch_size
+        slab_z = max(int(slab_z), patch_size)
+        if max_block_voxels is not None:
+            cores = plan_stream_cores(
+                shape, patch_size, overlap, int(max_block_voxels)
+            )
+            cores = (min(cores[0], slab_z), cores[1], cores[2])
+        else:
+            cores = (slab_z, Y, X)
+        plan = _tile_plan(shape, cores, halo, patch_size - overlap)
 
-    primary = mesh is None or is_primary()
-    out_arr = None
-    out_store = None
-    if output_path is None:
-        out_arr = np.empty(shape, np.uint16)
-    elif primary:
-        import tensorstore as ts
+        primary = mesh is None or is_primary()
+        out_arr = None
+        out_store = None
+        if output_path is None:
+            out_arr = np.empty(shape, np.uint16)
+        elif primary:
+            import tensorstore as ts
 
-        spec = {
-            "driver": "zarr3",
-            "kvstore": img_io._kvstore(output_path),
-            "metadata": {
-                "shape": [1, 1, *shape],
-                "chunk_grid": {
-                    "name": "regular",
-                    "configuration": {"chunk_shape": list(chunks)},
+            spec = {
+                "driver": "zarr3",
+                "kvstore": img_io._kvstore(output_path),
+                "metadata": {
+                    "shape": [1, 1, *shape],
+                    "chunk_grid": {
+                        "name": "regular",
+                        "configuration": {"chunk_shape": list(chunks)},
+                    },
+                    "data_type": "uint16",
+                    "codecs": img_io._zarr3_codecs("zstd", clevel, "shuffle",
+                                                   2),
                 },
-                "data_type": "uint16",
-                "codecs": img_io._zarr3_codecs("zstd", clevel, "shuffle", 2),
-            },
-            "create": True,
-            "delete_existing": True,
-        }
-        out_store = ts.open(spec).result()
+                "create": True,
+                "delete_existing": True,
+            }
+            out_store = ts.open(spec).result()
 
-    lazy = hasattr(src, "read")
-    ndim = len(src.shape)
+        lazy = hasattr(src, "read")
+        ndim = len(src.shape)
 
-    def fetch(tile):
-        sl = tuple(slice(lo, hi) for _, _, lo, hi in tile)
-        idx = (Ellipsis,) + sl if ndim == 5 else sl
-        block = np.asarray(src[idx].read().result() if lazy else src[idx])
-        if block.ndim == 5:
-            block = block[0, 0]
-        return block.astype(np.uint16)
+        def fetch(tile):
+            sl = tuple(slice(lo, hi) for _, _, lo, hi in tile)
+            idx = (Ellipsis,) + sl if ndim == 5 else sl
+            block = np.asarray(src[idx].read().result() if lazy else src[idx])
+            if block.ndim == 5:
+                block = block[0, 0]
+            return block.astype(np.uint16)
 
-    # Reader thread: keeps `prefetch` super-tiles in flight. It touches
-    # host memory only; an exception is handed to the caller's thread. When
-    # the caller's loop ends early (an exception in `predict`), `stop` lets
-    # the reader drop its fetched tile and leave instead of blocking on the
-    # full queue for good.
-    q = queue.Queue(maxsize=max(1, prefetch))
-    _STOP = object()
-    stop = threading.Event()
+        # Reader thread: keeps `prefetch` super-tiles in flight. It touches
+        # host memory only; an exception is handed to the caller's thread.
+        # When the caller's loop ends early (an exception in `predict`),
+        # `stop` lets the reader drop its fetched tile and leave instead of
+        # blocking on the full queue for good. The spans below are the main
+        # thread's: the reader's own time shows as `pipeline.wait`.
+        q = queue.Queue(maxsize=max(1, prefetch))
+        _STOP = object()
+        stop = threading.Event()
 
-    def hand_over(item):
-        while not stop.is_set():
+        def hand_over(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def reader():
             try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                pass
-        return False
+                for tile in plan:
+                    if not hand_over((tile, fetch(tile))):
+                        return
+                hand_over(_STOP)
+            except BaseException as exc:
+                hand_over(exc)
 
-    def reader():
+        threading.Thread(target=reader, daemon=True,
+                         name="denoise_volume-reader").start()
+
+        pending_writes = []
+        done = 0
         try:
-            for tile in plan:
-                if not hand_over((tile, fetch(tile))):
-                    return
-            hand_over(_STOP)
-        except BaseException as exc:
-            hand_over(exc)
+            while True:
+                with span("pipeline.wait"):
+                    item = q.get()
+                if item is _STOP:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                tile, block = item
+                (z0, z1, lo, _), (y0, y1, loy, _), (x0, x1, lox, _) = tile
+                with span("pipeline.slab"):
+                    if mesh is not None:
+                        res = _predict_on_mesh(block, model, transform, mesh,
+                                               patch_size, overlap, trim,
+                                               batch_size)
+                    else:
+                        res = predict(
+                            block, model, transform, patch_size=patch_size,
+                            overlap=overlap, trim=trim, batch_size=batch_size,
+                            device=device,
+                        )
+                core = res[
+                    z0 - lo:z0 - lo + (z1 - z0),
+                    y0 - loy:y0 - loy + (y1 - y0),
+                    x0 - lox:x0 - lox + (x1 - x0),
+                ]
+                with span("pipeline.write"):
+                    if out_arr is not None:
+                        out_arr[z0:z1, y0:y1, x0:x1] = core
+                    elif primary:
+                        pending_writes.append(
+                            out_store[0, 0, z0:z1, y0:y1, x0:x1].write(core)
+                        )
+                done += 1
+                if progress:
+                    print(f"denoise_volume: tile {done}/{len(plan)}",
+                          flush=True)
+        finally:
+            stop.set()
 
-    threading.Thread(target=reader, daemon=True,
-                     name="denoise_volume-reader").start()
-
-    pending_writes = []
-    done = 0
-    try:
-        while True:
-            item = q.get()
-            if item is _STOP:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            tile, block = item
-            (z0, z1, lo, _), (y0, y1, loy, _), (x0, x1, lox, _) = tile
-            if mesh is not None:
-                res = _predict_on_mesh(block, model, transform, mesh,
-                                       patch_size, overlap, trim, batch_size)
-            else:
-                res = predict(
-                    block, model, transform, patch_size=patch_size,
-                    overlap=overlap, trim=trim, batch_size=batch_size,
-                    device=device,
-                )
-            core = res[
-                z0 - lo:z0 - lo + (z1 - z0),
-                y0 - loy:y0 - loy + (y1 - y0),
-                x0 - lox:x0 - lox + (x1 - x0),
-            ]
-            if out_arr is not None:
-                out_arr[z0:z1, y0:y1, x0:x1] = core
-            elif primary:
-                pending_writes.append(
-                    out_store[0, 0, z0:z1, y0:y1, x0:x1].write(core)
-                )
-            done += 1
-            if progress:
-                print(f"denoise_volume: tile {done}/{len(plan)}", flush=True)
-    finally:
-        stop.set()
-
-    for w in pending_writes:
-        w.result()
-    return out_arr if out_arr is not None else output_path
+        with span("pipeline.drain"):
+            for w in pending_writes:
+                w.result()
+        return out_arr if out_arr is not None else output_path

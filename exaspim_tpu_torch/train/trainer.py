@@ -93,7 +93,7 @@ from exaspim_tpu_torch.train.state import (
     make_train_step,
     pack_fg_bits,
 )
-from exaspim_tpu_torch.utils.profiling import StepTimer
+from exaspim_tpu_torch.utils.profiling import StepTimer, span
 
 __all__ = ["Trainer"]
 
@@ -463,19 +463,21 @@ class Trainer:
             step += 1
             stats = timer.step() or {}
             if step % self.log_every == 0 or step == total_steps:
-                self._scalar("train_loss", float(loss), step)
-                if "voxels_per_sec" in stats:
-                    self._scalar("voxels_per_sec", stats["voxels_per_sec"],
-                                 step)
-                self._log({
-                    "event": "train", "step": step, "epoch": epoch,
-                    "loss": float(loss),
-                    "wall_s": round(time.time() - t0, 1),
-                    **stats,
-                })
+                with span("trainer.log"):
+                    self._scalar("train_loss", float(loss), step)
+                    if "voxels_per_sec" in stats:
+                        self._scalar("voxels_per_sec",
+                                     stats["voxels_per_sec"], step)
+                    self._log({
+                        "event": "train", "step": step, "epoch": epoch,
+                        "loss": float(loss),
+                        "wall_s": round(time.time() - t0, 1),
+                        **stats,
+                    })
             if step % self.val_every == 0 and self.primary:
-                self.validate_and_checkpoint(state, eval_step, val_loader,
-                                             step)
+                with span("trainer.validate"):
+                    self.validate_and_checkpoint(state, eval_step,
+                                                 val_loader, step)
 
         samples_per_epoch = steps_per_epoch * self.batch_size
         if n_shards == 1:
@@ -488,9 +490,10 @@ class Trainer:
                 order = torch.from_numpy(order.astype(np.int64)).to(
                     self.device)
                 for lo in range(0, samples_per_epoch, self.batch_size):
-                    state, loss = train_step(
-                        state, raw_dev, teacher_dev, fg_dev,
-                        order[lo:lo + self.batch_size])
+                    with span("trainer.step"):
+                        state, loss = train_step(
+                            state, raw_dev, teacher_dev, fg_dev,
+                            order[lo:lo + self.batch_size])
                     bookkeep(state, loss, epoch)
         elif use_dev_cache:
             # Shard rotation: each epoch walks S contiguous shards of whole
@@ -512,9 +515,10 @@ class Trainer:
                     order = torch.from_numpy(order.astype(np.int64)).to(
                         self.device)
                     for lo in range(0, len(order), self.batch_size):
-                        state, loss = train_step(
-                            state, raw_dev, teacher_dev, fg_dev,
-                            order[lo:lo + self.batch_size])
+                        with span("trainer.step"):
+                            state, loss = train_step(
+                                state, raw_dev, teacher_dev, fg_dev,
+                                order[lo:lo + self.batch_size])
                         bookkeep(state, loss, epoch)
                     # The freed shard goes back to the caching allocator,
                     # which reuses it for the next one in stream order.
@@ -532,10 +536,13 @@ class Trainer:
                                for b in train_loader)
                 for x, y, fg in prefetch_to_device(batches,
                                                    device=self.device):
-                    state, loss = train_step(state, x, y, fg)
+                    with span("trainer.step"):
+                        state, loss = train_step(state, x, y, fg)
                     bookkeep(state, loss, epoch)
         if step % self.val_every != 0 and self.primary:
-            self.validate_and_checkpoint(state, eval_step, val_loader, step)
+            with span("trainer.validate"):
+                self.validate_and_checkpoint(state, eval_step, val_loader,
+                                             step)
         if self._writer is not None:
             self._writer.flush()
         return state

@@ -6,6 +6,10 @@ Counterpart of ``exaspim_tpu/utils/profiling.py``:
   trace of the host and (on the card) the device into ``log_dir``, as
   ``<host>_<pid>.<timestamp>.pt.trace.json``: Chrome's ``about:tracing`` (or
   Perfetto) and TensorBoard's PyTorch profiler plugin load it.
+* :func:`span` — a named span of the calling thread's time inside the
+  pipeline, inference, the loader and the trainer, recorded into whichever
+  ``torch.profiler`` session is running, beside the device's activity on
+  one clock; one flag check when none is.
 * :class:`StepTimer` — wall-clock step / throughput counters with EMA
   smoothing, reporting steps/s and voxels/s. The times are host clock
   between calls; on the card a step's time is its device time only where
@@ -23,7 +27,11 @@ import contextlib
 import json
 import time
 
-__all__ = ["trace", "StepTimer", "device_memory_stats", "log_jsonl"]
+import torch
+
+__all__ = ["trace", "span", "StepTimer", "device_memory_stats", "log_jsonl"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,7 +43,6 @@ def trace(log_dir, enabled=True):
     if not enabled:
         yield None
         return
-    import torch
     from torch.profiler import (
         ProfilerActivity,
         profile,
@@ -49,6 +56,24 @@ def trace(log_dir, enabled=True):
                  on_trace_ready=tensorboard_trace_handler(str(log_dir))) \
             as prof:
         yield prof
+
+
+def span(name):
+    """A context that records the enclosed block as the span ``name`` in
+    the running ``torch.profiler`` session (:func:`trace`, or any other):
+    ``torch.profiler.record_function(name)``, whose host event shares the
+    session's clock with the device's operations, so a span says what the
+    host was doing while the device ran or idled. Spans nest.
+
+    With no profiler running it returns one shared null context after a
+    single flag check: a span costs nothing worth counting in production.
+    A span entered before the profiler starts records nothing; one still
+    open when it stops ends there. The profiler records only the threads it
+    was started on, so spans go on the thread that launches the CUDA work,
+    and a worker thread shows as that thread's wait on it."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:
@@ -98,8 +123,6 @@ def device_memory_stats():
     device: the bytes the caching allocator holds for tensors and the
     card's total memory. Without a card, ``{"cpu": None}``: no device
     reports memory there, as the JAX package's CPU devices report none."""
-    import torch
-
     if not torch.cuda.is_available():
         return {"cpu": None}
     out = {}
