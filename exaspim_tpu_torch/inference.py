@@ -12,8 +12,15 @@ package's sharded path; its single-device ``predict`` refuses such
 geometries).
 
 The whole datapath runs on ``device`` (the card unless the caller passes
-``device="cpu"``): the raw block is uploaded once, and only the final
-counts come back to the host.
+``device="cpu"``). A uint16 block crosses the bus in its own dtype: it is
+staged in page-locked host memory, uploaded as its int16 bits and widened
+to float32 on the device; the counts are quantised there, cropped to the
+core the caller keeps and come back as 16 bits into page-locked memory.
+A block of any other dtype is cast to float32 on the host, and float
+output (``return_float``) comes back as float32. The counters
+``predict.staged_u16`` / ``predict.staged_host`` (blocks uploaded as uint16
+/ cast on the host) and ``predict.bus_bytes`` (bytes copied to and from the
+device) count every block.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from exaspim_tpu_torch.data.loader import counts_f32, to_tensor
 from exaspim_tpu_torch.utils.profiling import span
 
 __all__ = [
@@ -227,7 +235,9 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
     Returns ``(program, starts)``: ``program(raw, starts)`` denoises one
     block ``raw`` (a float32 tensor of raw counts on the model's device) and
     ``starts`` is the tail-padded ``(n, 3)`` patch-origin array (the tail
-    repeats the last start so every batch is full).
+    repeats the last start so every batch is full). ``program(raw, starts,
+    crop)`` returns only the part of the block that ``crop`` (a tuple of
+    slices) selects, and maps only that back to counts.
 
     ``output_clip`` clamps every prediction in the transform domain before
     the stitch: ``"input"`` to the transformed block's own range, or an
@@ -248,8 +258,9 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
     )
     starts = _pad_starts(starts, batch_size)
     P = patch_size
+    whole = tuple(slice(0, d) for d in shape)
 
-    def program(raw, starts):
+    def program(raw, starts, crop=None):
         x = transform.forward(raw)
         clip = output_clip
         if output_clip == "input":
@@ -273,10 +284,15 @@ def build_tiled_program(model, transform, shape, patch_size=64, overlap=12,
                                        P, padded)
                 wgt = _parity_canvas(torch.cat(masks), grid_dims, stride, P,
                                      padded)
-            out = (accum / (wgt + 1e-8))[:shape[0], :shape[1], :shape[2]]
+            # Every step from here is elementwise: cropping first gives the
+            # same voxels.
+            accum, wgt = accum[whole], wgt[whole]
+            if crop is not None:
+                accum, wgt = accum[crop], wgt[crop]
+            out = accum / (wgt + 1e-8)
             if return_float:
                 return transform.inverse_float(out)
-        with span("inference.download"):  # the counts' DtoH and uint16 cast
+        with span("inference.download"):  # the counts' 16-bit DtoH
             return transform.inverse(out)
 
     return program, starts
@@ -295,9 +311,13 @@ def _check(img, patch_size, overlap, trim):
         )
 
 
+# Blocks above this many voxels stream through super-tiles.
+_MAX_DEVICE_VOXELS = 640 ** 3
+
+
 def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
-            batch_size=32, max_device_voxels=640 ** 3, return_float=False,
-            output_clip=None, device="cuda"):
+            batch_size=32, max_device_voxels=_MAX_DEVICE_VOXELS,
+            return_float=False, output_clip=None, device="cuda"):
     """Denoise a whole volume; returns numpy uint16 counts (or float32
     counts with ``return_float``).
 
@@ -308,6 +328,34 @@ def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
     ``output_clip`` (``None``, ``"input"`` or ``(lo, hi)``; see
     :func:`build_tiled_program`) is taken per super-tile when streaming.
     """
+    out = _predict(img, model, transform, patch_size=patch_size,
+                   overlap=overlap, trim=trim, batch_size=batch_size,
+                   max_device_voxels=max_device_voxels,
+                   return_float=return_float, output_clip=output_clip,
+                   device=device)
+    # A block's uint16 counts come back in page-locked memory, which the
+    # host allocator reuses once dropped: the caller gets its own copy.
+    return out if return_float or out.flags.owndata else out.copy()
+
+
+predict.staged_u16 = 0
+predict.staged_host = 0
+predict.bus_bytes = 0
+
+
+def _predict(img, model, transform, *, patch_size, overlap, trim,
+             batch_size, max_device_voxels=_MAX_DEVICE_VOXELS,
+             return_float=False, output_clip=None, device="cuda", crop=None,
+             staged=None):
+    """:func:`predict`'s body, returning only the part of the result that
+    ``crop`` (a tuple of slices; the whole by default) selects. A uint16
+    block's counts are a view of page-locked memory on the card.
+
+    A uint16 block goes up as its int16 bits from page-locked memory and is
+    widened to float32 on the device; ``staged``, where given, is a host
+    int16 tensor whose first voxels hold ``img`` already (page-locked on
+    the card). Any other dtype is cast on the host. Every step is exact,
+    so the result is bit for bit the host-staged one."""
     img = np.asarray(img)
     if img.ndim == 5:
         img = img[0, 0]
@@ -317,24 +365,40 @@ def predict(img, model, transform, patch_size=64, overlap=12, trim=5,
         patch_size, batch_size = plan_tiling(img.shape, overlap)
     _check(img, patch_size, overlap, trim)
     if int(np.prod(img.shape)) > max_device_voxels:
-        return _predict_streaming(
+        out = _predict_streaming(
             img, model, transform, patch_size, overlap, trim, batch_size,
             max_device_voxels, return_float, output_clip, device,
         )
+        return out if crop is None else out[crop]
     program, starts = build_tiled_program(
         model, transform, img.shape, patch_size, overlap, trim, batch_size,
         return_float=return_float, output_clip=output_clip,
     )
-    with span("inference.cast"):
-        raw = np.asarray(img, dtype=np.float32)
-    with span("inference.upload"):
-        raw = torch.from_numpy(raw).to(device)
+    if img.dtype == np.uint16:
+        predict.staged_u16 += 1
+        with span("inference.upload"):
+            if staged is None:
+                raw = to_tensor(img, device)
+            else:
+                raw = staged[:img.size].view(img.shape).to(
+                    device, non_blocking=True)
+        with span("inference.cast"):
+            raw = counts_f32(raw)
+        predict.bus_bytes += img.nbytes
+    else:
+        predict.staged_host += 1
+        with span("inference.cast"):
+            raw = np.asarray(img, dtype=np.float32)
+        predict.bus_bytes += raw.nbytes
+        with span("inference.upload"):
+            raw = torch.from_numpy(raw).to(device)
     with torch.inference_mode():
-        out = program(raw, starts)
-    if not isinstance(out, torch.Tensor):
-        return out
-    with span("inference.download"):
-        return out.cpu().numpy()
+        out = program(raw, starts, crop)
+    if isinstance(out, torch.Tensor):
+        with span("inference.download"):
+            out = out.cpu().numpy()
+    predict.bus_bytes += out.nbytes
+    return out
 
 
 def plan_stream_cores(shape, patch_size, overlap, max_device_voxels):
@@ -379,13 +443,13 @@ def _predict_streaming(img, model, transform, patch_size, overlap, trim,
                     core_sl.append(slice(d0, d1))
                     res_sl.append(slice(d0 - lo, d0 - lo + (d1 - d0)))
                     blk_sl.append(slice(lo, hi))
-                res = predict(
-                    img[tuple(blk_sl)], model, transform, patch_size,
-                    overlap, trim, batch_size, max_device_voxels=2 ** 63,
+                out[tuple(core_sl)] = _predict(
+                    img[tuple(blk_sl)], model, transform,
+                    patch_size=patch_size, overlap=overlap, trim=trim,
+                    batch_size=batch_size, max_device_voxels=2 ** 63,
                     return_float=return_float, output_clip=output_clip,
-                    device=device,
+                    device=device, crop=tuple(res_sl),
                 )
-                out[tuple(core_sl)] = res[tuple(res_sl)]
     return out
 
 

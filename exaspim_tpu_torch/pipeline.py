@@ -5,10 +5,13 @@ larger than host or device memory; this module streams a chunked volume
 through the card in halo'd super-tiles (full-plane z-slabs by default; y/x
 tiled too when ``max_block_voxels`` bounds the device block):
 
-    reader thread (tensorstore chunk fetch, host memory only)
+    reader thread (tensorstore chunk fetch into a pool of host staging
+    buffers, page-locked on the card; host memory only)
         → bounded prefetch queue
-        → tiled inference on the device (main thread: every CUDA call)
-        → asynchronous Zarr v3 writes, awaited at the end
+        → tiled inference on the device (main thread: every CUDA call):
+          each tile goes up as uint16, and only its uint16 core comes back
+        → the core copied into the output, or an asynchronous Zarr v3
+          write, awaited at the end
 
 Each tile carries a ``patch_size`` halo on interior faces and its low edge
 is aligned to the global stride grid, so the tile-local patch grid is the
@@ -22,8 +25,14 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
-from exaspim_tpu_torch.inference import plan_stream_cores, plan_tiling, predict
+from exaspim_tpu_torch.inference import (
+    _MAX_DEVICE_VOXELS,
+    _predict,
+    plan_stream_cores,
+    plan_tiling,
+)
 from exaspim_tpu_torch.parallel.multihost import is_primary
 from exaspim_tpu_torch.utils import img_io
 from exaspim_tpu_torch.utils.profiling import span
@@ -68,6 +77,21 @@ def _tile_plan(shape, cores, halo, stride):
                     tile.append((d0, d1, lo, hi))
                 plan.append(tuple(tile))
     return plan
+
+
+def _staging_pool(plan, n, device):
+    """``n`` host int16 buffers the size of the plan's largest tile
+    (page-locked on the card), each with its uint16 view; none where that
+    tile is above the device block limit, since such a tile streams through
+    super-tiles that stage their own sub-blocks."""
+    largest = max(int(np.prod([hi - lo for _, _, lo, hi in tile]))
+                  for tile in plan)
+    if largest > _MAX_DEVICE_VOXELS:
+        return []
+    pinned = torch.device(device).type == "cuda"
+    bufs = [torch.empty(largest, dtype=torch.int16, pin_memory=pinned)
+            for _ in range(n)]
+    return [(buf, buf.numpy().view(np.uint16)) for buf in bufs]
 
 
 def denoise_volume(img, model, transform, output_path=None, slab_z=256,
@@ -149,13 +173,19 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
         lazy = hasattr(src, "read")
         ndim = len(src.shape)
 
-        def fetch(tile):
+        def fetch(tile, into=None):
+            """The tile's block as uint16: copied into the front of the
+            staging array ``into`` where given."""
             sl = tuple(slice(lo, hi) for _, _, lo, hi in tile)
             idx = (Ellipsis,) + sl if ndim == 5 else sl
             block = np.asarray(src[idx].read().result() if lazy else src[idx])
             if block.ndim == 5:
                 block = block[0, 0]
-            return block.astype(np.uint16)
+            if into is None:
+                return block.astype(np.uint16)
+            staged = into[:block.size].reshape(block.shape)
+            np.copyto(staged, block, casting="unsafe")
+            return staged
 
         # Reader thread: keeps `prefetch` super-tiles in flight. It touches
         # host memory only; an exception is handed to the caller's thread.
@@ -163,9 +193,21 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
         # `stop` lets the reader drop its fetched tile and leave instead of
         # blocking on the full queue for good. The spans below are the main
         # thread's: the reader's own time shows as `pipeline.wait`.
+        # Off the mesh, and where no tile streams, it fetches into
+        # `prefetch + 2` staging buffers made here, each the size of the
+        # largest tile, which the main thread hands back once the tile's
+        # core has come down (so its upload has completed): one in the
+        # reader's hands, `prefetch` queued, one in use. torch's host
+        # allocator keeps page-locked blocks for reuse, so after the first
+        # volume of a size no call allocates any.
         q = queue.Queue(maxsize=max(1, prefetch))
         _STOP = object()
         stop = threading.Event()
+        free = queue.Queue()
+        pool = [] if mesh is not None else _staging_pool(
+            plan, max(1, prefetch) + 2, device)
+        for buf in pool:
+            free.put(buf)
 
         def hand_over(item):
             while not stop.is_set():
@@ -176,17 +218,34 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
                     pass
             return False
 
+        def take_free():
+            while not stop.is_set():
+                try:
+                    return free.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            return None
+
         def reader():
             try:
                 for tile in plan:
-                    if not hand_over((tile, fetch(tile))):
+                    buf = None
+                    if pool:
+                        buf = take_free()
+                        if buf is None:
+                            return
+                    into = None if buf is None else buf[1]
+                    item = (tile, fetch(tile, into), buf)
+                    if not hand_over(item):
                         return
+                    del item, buf
                 hand_over(_STOP)
             except BaseException as exc:
                 hand_over(exc)
 
-        threading.Thread(target=reader, daemon=True,
-                         name="denoise_volume-reader").start()
+        reader_thread = threading.Thread(target=reader, daemon=True,
+                                         name="denoise_volume-reader")
+        reader_thread.start()
 
         pending_writes = []
         done = 0
@@ -198,37 +257,48 @@ def denoise_volume(img, model, transform, output_path=None, slab_z=256,
                     break
                 if isinstance(item, BaseException):
                     raise item
-                tile, block = item
+                tile, block, buf = item
+                del item
                 (z0, z1, lo, _), (y0, y1, loy, _), (x0, x1, lox, _) = tile
+                crop = (slice(z0 - lo, z0 - lo + (z1 - z0)),
+                        slice(y0 - loy, y0 - loy + (y1 - y0)),
+                        slice(x0 - lox, x0 - lox + (x1 - x0)))
                 with span("pipeline.slab"):
                     if mesh is not None:
-                        res = _predict_on_mesh(block, model, transform, mesh,
-                                               patch_size, overlap, trim,
-                                               batch_size)
+                        core = _predict_on_mesh(block, model, transform, mesh,
+                                                patch_size, overlap, trim,
+                                                batch_size)[crop]
                     else:
-                        res = predict(
+                        core = _predict(
                             block, model, transform, patch_size=patch_size,
                             overlap=overlap, trim=trim, batch_size=batch_size,
-                            device=device,
+                            max_device_voxels=_MAX_DEVICE_VOXELS,
+                            device=device, crop=crop,
+                            staged=None if buf is None else buf[0],
                         )
-                core = res[
-                    z0 - lo:z0 - lo + (z1 - z0),
-                    y0 - loy:y0 - loy + (y1 - y0),
-                    x0 - lox:x0 - lox + (x1 - x0),
-                ]
                 with span("pipeline.write"):
                     if out_arr is not None:
                         out_arr[z0:z1, y0:y1, x0:x1] = core
                     elif primary:
+                        # The write holds `core` until it has copied it, and
+                        # no later tile reuses the staging block under it.
                         pending_writes.append(
                             out_store[0, 0, z0:z1, y0:y1, x0:x1].write(core)
                         )
+                # Drop the core's staging block before the next tile asks
+                # for one, and hand the tile's buffer back to the reader.
+                del block, core
+                if buf is not None:
+                    free.put(buf)
                 done += 1
                 if progress:
                     print(f"denoise_volume: tile {done}/{len(plan)}",
                           flush=True)
         finally:
             stop.set()
+        # The reader has handed over its end; once it has left, the staging
+        # buffers go back to the allocator when this call returns.
+        reader_thread.join()
 
         with span("pipeline.drain"):
             for w in pending_writes:

@@ -8,8 +8,9 @@ mapping bit-identically).
 Tensors in, tensors out, always float32 on the input's device. numpy
 arrays are accepted and land on the CPU. ``inverse`` quantizes to counts:
 clip to ``[0, max_count]``, round half to even (``torch.round``), and —
-because torch has no uint16 arithmetic — go through int32 and hand back a
-numpy ``uint16`` array at the host boundary.
+because torch has no uint16 arithmetic — go through int32, narrow to the
+int16 bits of uint16 on the device and hand back a numpy ``uint16`` array
+at the host boundary.
 """
 
 from __future__ import annotations
@@ -70,8 +71,18 @@ class IntensityTransform:
         return torch.round(counts).to(torch.int32)
 
     def inverse(self, y):
-        """Maps normalized values to raw counts: a numpy uint16 array."""
-        return self.inverse_counts(y).cpu().numpy().astype(np.uint16)
+        """Maps normalized values to raw counts: a numpy uint16 array.
+
+        The counts are narrowed to 16 bits on ``y``'s device, so only those
+        cross the bus; from a card they land in page-locked memory, of which
+        the returned array is a view."""
+        counts = self.inverse_counts(y)
+        # 0..65535 to the int16 bit patterns of uint16, exactly.
+        bits = (counts - (counts >> 15 << 16)).to(torch.int16)
+        host = torch.empty(bits.shape, dtype=torch.int16,
+                           pin_memory=bits.is_cuda)
+        host.copy_(bits)
+        return host.numpy().view(np.uint16)
 
 
 @dataclasses.dataclass(frozen=True)

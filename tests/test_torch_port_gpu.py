@@ -449,6 +449,48 @@ def test_pipeline_streams_on_the_card():
         np.testing.assert_array_equal(streamed, direct)
 
 
+@pytest.mark.gpu
+def test_staged_denoise_on_the_card_is_the_host_path_and_reuses_pinned():
+    """The shipped UNet on the card: a uint16 block staged in page-locked
+    memory and widened on the card, its core narrowed there, gives the bits
+    of the host's float32 cast (``predict`` directly, and each tile of
+    ``denoise_volume``); a second ``denoise_volume`` of the same size
+    allocates no page-locked memory."""
+    _card()
+    from exaspim_tpu_torch.inference import predict
+    from exaspim_tpu_torch.pipeline import _tile_plan, denoise_volume
+    from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+
+    model, t = restore_pipeline("checkpoints/bm4dnet.msgpack")
+    rng = np.random.default_rng(8)
+    img = rng.poisson(300.0, (200, 96, 96)).astype(np.uint16)
+    img[60:140, 20:70, 20:70] += 40000  # counts above 32767 too
+    kw = dict(patch_size=64, overlap=12, trim=5, batch_size=4)
+    before = predict.staged_u16, predict.staged_host
+    staged = predict(img, model, t, **kw)
+    host = predict(img.astype(np.float32), model, t, **kw)
+    assert (predict.staged_u16, predict.staged_host) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert staged.dtype == np.uint16 and staged.max() > 32767
+    np.testing.assert_array_equal(staged, host)
+
+    plan = _tile_plan(img.shape, (64, 96, 96), 64, 52)
+    want = np.empty_like(img)
+    for tile in plan:
+        block = img[tuple(slice(lo, hi) for _, _, lo, hi in tile)]
+        res = predict(block.astype(np.float32), model, t, **kw)
+        want[tuple(slice(d0, d1) for d0, d1, _, _ in tile)] = res[tuple(
+            slice(d0 - lo, d1 - lo) for d0, d1, lo, _ in tile)]
+    got = denoise_volume(img, model, t, slab_z=64, **kw)
+    np.testing.assert_array_equal(got, want)
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    u16 = predict.staged_u16
+    again = denoise_volume(img, model, t, slab_z=64, **kw)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    assert predict.staged_u16 == u16 + len(plan) and len(plan) == 4
+    np.testing.assert_array_equal(again, got)
+
+
 def _conv_inputs(rng, b, ext, segs, cout):
     xs = tuple(torch.from_numpy(_rand(rng, (b, *ext, c))).to(
         "cuda", torch.bfloat16) for c in segs)

@@ -211,3 +211,170 @@ def test_defaults_follow_the_port_conventions():
                  "clevel", "chunks", "prefetch", "progress",
                  "max_block_voxels", "output_path"):
         assert sig[name].default == jsig[name].default, name
+
+
+# -- uint16 staging: a tile goes up as uint16 and only its core comes back --
+
+ASINH = {"kind": "asinh", "params": {"offset": 100.0, "scale": 60.0}}
+STAGE_KW = dict(patch_size=16, overlap=4, trim=2, batch_size=4)
+
+
+class Blur(torch.nn.Module):
+    """A seeded 3³ conv on the channels-last patches: each output voxel
+    depends on its neighbours, so a tile's halo and crop matter."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv3d(1, 1, 3, padding=1)
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            self.conv.weight.copy_(torch.rand(1, 1, 3, 3, 3, generator=g)
+                                   / 13.5)
+            self.conv.bias.fill_(0.01)
+
+    def forward(self, x):
+        return self.conv(x.movedim(-1, 1)).movedim(1, -1)
+
+
+def _recipe(block, model, t, return_float=False):
+    """The host-staged recipe: float32 cast on the host, the same tiled
+    program, ``inverse_counts`` on the whole block, ``.astype(uint16)``
+    (or the float inverse)."""
+    from exaspim_tpu_torch.inference import build_tiled_program
+
+    program, starts = build_tiled_program(model, t, block.shape,
+                                          return_float=return_float,
+                                          **STAGE_KW)
+    with torch.inference_mode():
+        out = program(torch.from_numpy(np.asarray(block, np.float32)),
+                      starts)
+    return out.numpy() if return_float else out
+
+
+def _volume_recipe(img, model, t, slab_z):
+    """The parent's ``denoise_volume``: each tile of the slab plan through
+    the recipe, its core cropped on the host."""
+    out = np.empty(img.shape, np.uint16)
+    halo = STAGE_KW["patch_size"]
+    stride = halo - STAGE_KW["overlap"]
+    plan = tp._tile_plan(img.shape, (slab_z,) + img.shape[1:], halo, stride)
+    for tile in plan:
+        res = _recipe(img[tuple(slice(lo, hi) for _, _, lo, hi in tile)],
+                      model, t)
+        out[tuple(slice(d0, d1) for d0, d1, _, _ in tile)] = res[tuple(
+            slice(d0 - lo, d1 - lo) for d0, d1, lo, _ in tile)]
+    return out
+
+
+@pytest.mark.parametrize("case", ["predict-u16", "predict-f32",
+                                  "predict-u16-float", "predict-f32-float",
+                                  "predict-u16-streamed", "volume-u16",
+                                  "volume-f32"])
+def test_staged_path_equals_the_host_recipe(case, tmp_path):
+    """uint16 blocks take the staged path, anything else and float output
+    the host's; every output is bit for bit the host-staged recipe's, in
+    memory and through Zarr (whose writes must not see a staging buffer
+    reused under them)."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 3000, (72, 22, 20))
+    # A bright cube across two slabs: counts above 32767 come back too.
+    img[20:52, 4:16, 4:16] = rng.integers(33000, 65536, (32, 12, 12))
+    if "f32" in case:  # off the integers: the host cast's own input
+        img = img + rng.random(img.shape) * 0.9
+    img = img.astype(np.float32 if "f32" in case else np.uint16)
+    model, t = Blur(), build_transform(ASINH)
+    if case.startswith("predict"):
+        return_float = case.endswith("float")
+        kw = dict(STAGE_KW, return_float=return_float, device="cpu")
+        if case.endswith("streamed"):
+            kw["max_device_voxels"] = 40 * 22 * 20  # three super-tiles
+        got = predict(img, model, t, **kw)
+        want = _recipe(img, model, t, return_float)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        return
+    want = _volume_recipe(img.astype(np.uint16), model, t, slab_z=24)
+    kw = dict(STAGE_KW, slab_z=24, device="cpu")
+    got = tp.denoise_volume(img, model, t, prefetch=1, **kw)
+    np.testing.assert_array_equal(got, want)
+    in_path, out_path = str(tmp_path / "in.zarr"), str(tmp_path / "out.zarr")
+    tio.write_zarr(img.astype(np.uint16), in_path, chunks=(1, 1, 8, 8, 8))
+    tp.denoise_volume(in_path, model, t, output_path=out_path, prefetch=1,
+                      chunks=(1, 1, 8, 8, 8), **kw)
+    np.testing.assert_array_equal(
+        np.asarray(tio.read(out_path)[...].read().result())[0, 0], got)
+
+
+def _counters():
+    return predict.staged_u16, predict.staged_host, predict.bus_bytes
+
+
+def _plan_sums(plan):
+    """Tiles, tile voxels and core voxels of a super-tile plan."""
+    def vox(tile, lo_hi):
+        return int(np.prod([lo_hi(*axis) for axis in tile]))
+
+    return (len(plan),
+            sum(vox(tile, lambda d0, d1, lo, hi: hi - lo) for tile in plan),
+            sum(vox(tile, lambda d0, d1, lo, hi: d1 - d0) for tile in plan))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+@pytest.mark.parametrize("entry", ["denoise_volume", "predict"])
+def test_staging_counters(entry, dtype):
+    """A run of N tiles counts N staged blocks of its kind and the bytes
+    that cross: 2 (uint16) or 4 (float32, cast on the host) a tile voxel
+    up, 2 a core voxel down. ``denoise_volume``'s reader hands over every
+    tile as uint16; ``predict`` (here over its own super-tiles) stages by
+    the input's dtype."""
+    from exaspim_tpu_torch.inference import plan_stream_cores
+
+    img = np.random.default_rng(12).integers(0, 900, (80, 24, 20)).astype(
+        dtype)
+    t = build_transform(TCFG)
+    limit = 60 * 24 * 20
+    if entry == "denoise_volume":
+        plan = tp._tile_plan(img.shape, (32, 24, 20), 16, 12)
+        staged_u16 = True
+    else:
+        plan = tp._tile_plan(img.shape, plan_stream_cores(
+            img.shape, 16, 4, limit), 16, 12)
+        staged_u16 = dtype == np.uint16
+    n, tile_voxels, core_voxels = _plan_sums(plan)
+    assert n >= 3
+    before = _counters()
+    if entry == "denoise_volume":
+        tp.denoise_volume(img, DoublePlusOne(), t, slab_z=32, device="cpu",
+                          **STAGE_KW)
+    else:
+        predict(img, DoublePlusOne(), t, device="cpu",
+                max_device_voxels=limit, **STAGE_KW)
+    u16, host, nbytes = (a - b for a, b in zip(_counters(), before))
+    assert (u16, host) == ((n, 0) if staged_u16 else (0, n))
+    assert nbytes == (2 if staged_u16 else 4) * tile_voxels + 2 * core_voxels
+
+
+def test_tiles_above_the_device_limit_get_no_staging_pool(monkeypatch):
+    """A tile above the device block limit streams through super-tiles that
+    stage their own sub-blocks, so the pool makes no buffer for it; the
+    volume is still the host-staged recipe's."""
+    wide = tp._tile_plan((352, 1536, 1536), (256, 1536, 1536), 96, 84)
+    assert tp._staging_pool(wide, 4, "cpu") == []
+    slabs = tp._tile_plan((72, 22, 20), (24, 22, 20), 16, 12)
+    pool = tp._staging_pool(slabs, 4, "cpu")
+    assert len(pool) == 4 and pool[0][1].size == 64 * 22 * 20  # z 0..64
+
+    made = []
+    pool_of = tp._staging_pool
+    monkeypatch.setattr(tp, "_staging_pool",
+                        lambda *a: made.append(pool_of(*a)) or made[-1])
+    monkeypatch.setattr(tp, "_MAX_DEVICE_VOXELS", 30 * 22 * 20)
+    img = np.random.default_rng(13).integers(0, 65536, (72, 22, 20)).astype(
+        np.uint16)
+    model, t = Blur(), build_transform(ASINH)
+    before = predict.staged_u16
+    got = tp.denoise_volume(img, model, t, slab_z=24, prefetch=1,
+                            device="cpu", **STAGE_KW)
+    assert made == [[]] and predict.staged_u16 - before > len(slabs)
+    np.testing.assert_array_equal(
+        got, _volume_recipe(img, model, t, slab_z=24))
