@@ -1,10 +1,12 @@
 """Whole-volume denoising: ``pipeline.denoise_volume``, ndarray in and
 ndarray out, volumes back to back (a closed loop: the next starts when the
-last is handed back), with the configuration's checkpoint.
+last is handed back), with the configuration's checkpoint or weights
+drawn from the seed (``weights.py``).
 
 Checked: a sample of the window's output volumes, drawn from the seed,
 against the plain reference's tiled denoising of the same input
-(``reference/tiled.py``): the RMS error over the reference's standard
+(``reference/tiled.py`` with the model's reference from
+``references.py``): the RMS error over the reference's standard
 deviation, and the largest error in counts."""
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from benchmark import generate
+from benchmark import generate, references, weights
 from benchmark.reference import msgpack_read, tiled, unet
 
 
@@ -39,15 +41,12 @@ class Cell:
         from exaspim_tpu_torch.ops import _build
         from exaspim_tpu_torch.ops.nb_conv import nb_conv3d
         from exaspim_tpu_torch.pipeline import denoise_volume
-        from exaspim_tpu_torch.train.checkpoint import restore_pipeline
 
         ctx, dev = self.ctx, self.ctx.device
         if torch.device(dev).type == "cuda":
             _build.build_all(names=tuple(self.tr["kernels"]))
         h.mark("kernels")
-        self.model, self.transform = restore_pipeline(
-            os.path.join(ctx.root, ctx.config["weights"]),
-            dtype=dtype_of(ctx.config["dtype"], dev), device=dev)
+        self.model, self.transform = self.load_model()
         h.mark("model")
         self.inputs = generate.volumes(self.tr["inputs"], ctx.seed, dev)
         h.mark("inputs")
@@ -71,6 +70,38 @@ class Cell:
                 break
         h.end_window()
 
+    def load_model(self):
+        """The program's ``(model, transform)``: restored from the
+        checkpoint, or built from the configuration and loaded with
+        weights drawn from the seed (kept for the reference)."""
+        from exaspim_tpu_torch.models import build_model
+        from exaspim_tpu_torch.train.checkpoint import restore_pipeline
+        from exaspim_tpu_torch.transforms import build_transform
+
+        ctx, dev = self.ctx, self.ctx.device
+        dtype = dtype_of(ctx.config["dtype"], dev)
+        if not weights.from_seed(ctx.config):
+            return restore_pipeline(
+                os.path.join(ctx.root, ctx.config["weights"]), dtype=dtype,
+                device=dev)
+        model = build_model(ctx.config["model_config"], dtype=dtype,
+                            device=dev)
+        self.seeded = weights.seeded(model, ctx.seed, dev)
+        model.load_state_dict(self.seeded)
+        return model, build_transform(ctx.config["transform"])
+
+    def reference_params(self):
+        """The reference's flat float32 parameters: the checkpoint read
+        by the reference's own reader, or the seed's draw."""
+        ctx, dev = self.ctx, self.ctx.device
+        if weights.from_seed(ctx.config):
+            return {k: v.float() for k, v in
+                    weights.flat_names(self.seeded).items()}
+        tree, _ = msgpack_read.read_checkpoint(
+            os.path.join(ctx.root, ctx.config["weights"]))
+        return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                for k, v in unet.flatten(tree).items()}
+
     def free(self):
         del self.model, self.transform
         if torch.cuda.is_available():
@@ -89,10 +120,9 @@ class Cell:
         ctx, dev = self.ctx, self.ctx.device
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        tree, meta = msgpack_read.read_checkpoint(
-            os.path.join(ctx.root, ctx.config["weights"]))
-        params = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
-                  for k, v in unet.flatten(tree).items()}
+        params = self.reference_params()
+        model = references.reference_model(ctx.config["model_config"],
+                                         ctx.bench_dir)
         c = self.tr["check"]
         kw = self.kw
         cache = {}
@@ -101,7 +131,7 @@ class Cell:
             j = i % len(self.inputs)
             if quant is None and j in cache:
                 return cache[j]
-            out = tiled.denoise(params, ctx.config["model_config"],
+            out = tiled.denoise(model, params, ctx.config["model_config"],
                                 ctx.config["transform"], self.inputs[j],
                                 kw["patch_size"], kw["overlap"], kw["trim"],
                                 int(c["reference_batch"]), dev, quant)

@@ -8,7 +8,8 @@ control.
     python3 benchmark/control.py --workload <cell> --seconds 8 \
         --seeds 11 12 13 --control-seeds 21 22 23
 
-Needs a CUDA device.
+Needs a CUDA device, and one a rank for a cell on several cards, which
+runs in one process a card (``launch.py``; rank 0 prints).
 """
 
 from __future__ import annotations
@@ -40,31 +41,47 @@ def main(argv=None):
                         "out (a fault, training cells), or in bf16 itself "
                         "(a witness of what the configuration's precision "
                         "alone reads); by default the cell's own control")
+    p.add_argument("--rank-child", action="store_true", help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
 
     from benchmark import harness
 
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
+    bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    cell, _, traffic, _ = harness.cell_files(HERE, bench, args.workload)
+    chips = cell["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"needs {chips} CUDA device(s)", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"# {smi.strip()}", flush=True)
+    if chips > 1 and not args.rank_child:
+        from benchmark import launch
+
+        return launch.launch([sys.executable, os.path.abspath(__file__),
+                              *argv, "--rank-child"], chips,
+                             timeout_s=3600.0)
+    ranks = None
+    if args.rank_child:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        ranks = harness.Ranks.from_env()
+    if ranks is None or ranks.rank == 0:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True).stdout
+        print(f"# {smi.strip()}", flush=True)
     control = args.control
     if control is None:
-        bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
-        _, _, traffic, _ = harness.cell_files(HERE, bench, args.workload)
         control = harness.entry_module(HERE, traffic).CONTROL
     runs = [(s, None) for s in args.seeds] + [
         (s, control) for s in args.control_seeds]
     for seed, control in runs:
-        print(f"# seed {seed} control {control}", flush=True)
+        if ranks is None or ranks.rank == 0:
+            print(f"# seed {seed} control {control}", flush=True)
         harness.run_cell(args.workload, seed, args.seconds, False,
                          device="cuda", t_process=time.perf_counter(),
-                         control=control)
+                         control=control, ranks=ranks)
+    harness.end_ranks()
     return 0
 
 

@@ -20,6 +20,13 @@ def generator(seed, device):
     return torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
 
 
+def sub_seed(seed, *keys):
+    """A seed of its own for one part of a run (a rank's share of the
+    inputs, the weights), drawn from the run's seed and ``keys``."""
+    return int(np.random.SeedSequence([int(seed), *keys]).generate_state(
+        1, np.uint64)[0])
+
+
 def _blur(x, sigma):
     """Separable Gaussian blur (radius ``int(4σ + 0.5)``, edges
     replicated) of a ``(Z, Y, X)`` float tensor, as shifted sums: the same

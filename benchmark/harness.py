@@ -21,10 +21,19 @@ flight, reports each with ``h.unit_done(size)`` (and, for steps,
 ``free`` drops the program's state; ``check`` then runs the plain
 reference over the window's outputs and returns ``[(name, value,
 limit)]``; the run is correct when no value exceeds its limit.
+
+A cell on several cards runs one process a card (``launch.py``), each
+with the same seed and ``ctx.rank`` / ``ctx.world`` set. Rank 0 owns the
+window's clock, the check and the one result line, and its trace is the
+one the metrics read; the ranks agree on the window's last unit through a
+``TCPStore`` (:class:`Ranks`) and hand rank 0 their memory peaks and
+traced busy time. Every rank exits with 3, printing nothing on standard
+output, where it finds JAX loaded once its window has closed.
 """
 
 from __future__ import annotations
 
+import datetime
 import importlib.util
 import json
 import os
@@ -33,6 +42,7 @@ import time
 from types import SimpleNamespace
 
 import torch
+import torch.distributed as dist
 
 from benchmark import trace as trace_mod
 
@@ -96,13 +106,94 @@ def cell_metrics(bench, workload, trace):
             if "workloads" not in m or workload in m["workloads"]]
 
 
+class Ranks:
+    """The ranks of a cell on several cards, one process each, agreeing
+    over a ``TCPStore`` (rank 0 serves it) on where the window ends.
+
+    Rank 0 alone reads the clock. After each unit ``n`` of the window it
+    publishes ``p<n>``: 0, or the unit the window ends on, which it fixes
+    at ``n + LAG`` when ``n`` finishes past the deadline. Before enqueueing
+    unit ``n + 1`` a rank reads ``p<n + 1 − LAG>``, waiting for rank 0 to
+    get there, so no rank runs a unit that another leaves out and no rank
+    waits on the device: one store round trip a unit on the host, timed
+    in ``wait_s``. The window runs ``LAG`` units past the deadline.
+    """
+
+    LAG = 4
+
+    def __init__(self, rank, world, port, timeout_s=900):
+        self.rank, self.world = int(rank), int(world)
+        self.store = dist.TCPStore(
+            "127.0.0.1", int(port), self.world, self.rank == 0,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        self.runs = 0
+
+    @classmethod
+    def from_env(cls):
+        """The ranks of a process started by ``launch.py``, or None for a
+        process on its own."""
+        env = os.environ
+        if int(env.get("WORLD_SIZE", "1")) <= 1 \
+                or "BENCHMARK_STORE_PORT" not in env:
+            return None
+        return cls(env["RANK"], env["WORLD_SIZE"],
+                   env["BENCHMARK_STORE_PORT"])
+
+    def begin_run(self):
+        """Fresh keys for this process's next run (each rank runs the
+        same runs in the same order)."""
+        self.prefix = f"run{self.runs}/"
+        self.runs += 1
+        self.stop_at = None
+        self.wait_s = 0.0
+
+    def over(self, n, late):
+        """Whether unit ``n`` of the window (1, 2, ...) is its last;
+        ``late``: rank 0's clock is past the deadline."""
+        t = time.perf_counter()
+        done = False
+        if self.rank == 0:
+            if self.stop_at is None and late:
+                self.stop_at = n + self.LAG
+            self.store.set(f"{self.prefix}p{n}", str(self.stop_at or 0))
+            done = self.stop_at is not None and n >= self.stop_at
+        elif n + 1 - self.LAG >= 1:
+            stop = int(self.store.get(f"{self.prefix}p{n + 1 - self.LAG}"))
+            done = 0 < stop <= n
+        self.wait_s += time.perf_counter() - t
+        return done
+
+    def done(self):
+        """Rank 0: the run's result is out. The other ranks wait for it,
+        so that every rank leaves a run, and its process group, together."""
+        key = f"{self.prefix}done"
+        if self.rank == 0:
+            self.store.set(key, "1")
+            # Rank 0 serves the store: it stays until every rank has read.
+            self.store.wait([f"{self.prefix}left{r}"
+                             for r in range(1, self.world)])
+        else:
+            self.store.get(key)
+            self.store.set(f"{self.prefix}left{self.rank}", "1")
+
+    def gather(self, record):
+        """Every rank's ``record`` (a JSON-able dict: its memory peaks, its
+        traced busy time), in rank order, on rank 0; None on the others."""
+        self.store.set(f"{self.prefix}rec{self.rank}", json.dumps(record))
+        if self.rank != 0:
+            return None
+        return [json.loads(self.store.get(f"{self.prefix}rec{r}"))
+                for r in range(self.world)]
+
+
 class Window:
     """The clock of one run: set-up from process start to the window's
     start; the window from there to the end of the unit in flight at the
     deadline."""
 
-    def __init__(self, t_process, seconds, device, trace):
+    def __init__(self, t_process, seconds, device, trace, ranks=None):
         self.t_process = t_process
+        self.ranks = ranks
         self.seconds = float(seconds)
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
@@ -154,7 +245,10 @@ class Window:
             self._start.record()
 
     def over(self):
-        return time.perf_counter() >= self.deadline
+        late = time.perf_counter() >= self.deadline
+        if self.ranks is None:
+            return late
+        return self.ranks.over(len(self.units), late)
 
     def unit_done(self, size):
         self.units.append((float(size), time.perf_counter() - self.t0))
@@ -193,9 +287,21 @@ def forbidden_modules():
                   if m.split(".")[0] in FORBIDDEN)
 
 
+def refuse_forbidden(err=sys.stderr):
+    """Exit with 3, naming them on ``err``, where modules of JAX or of the
+    JAX package are loaded in this process."""
+    found = forbidden_modules()
+    if found:
+        print(f"modules of JAX or of the JAX package were loaded: {found}",
+              file=err, flush=True)
+        raise SystemExit(3)
+
+
 def run_cell(workload, seed, seconds, trace, device="cuda", bench_dir=HERE,
-             t_process=None, control=None, out=sys.stdout, err=sys.stderr):
-    """One run of one cell; prints the result line and returns it.
+             t_process=None, control=None, out=sys.stdout, err=sys.stderr,
+             ranks=None):
+    """One run of one cell; prints the result line and returns it (on
+    rank 0; the other ranks of ``ranks`` return None).
     ``control`` (the entry's ``CONTROL``, or ``"half_batch"`` for
     training cells) puts the reference in the control's precision, or
     with a planted fault, in the program's place for the check; ``"bf16"``
@@ -204,13 +310,38 @@ def run_cell(workload, seed, seconds, trace, device="cuda", bench_dir=HERE,
     t_process = time.perf_counter() if t_process is None else t_process
     bench = load_json(os.path.join(bench_dir, "..", "BENCHMARK.json"))
     _, config, traffic, limits = cell_files(bench_dir, bench, workload)
+    rank, world = (0, 1) if ranks is None else (ranks.rank, ranks.world)
+    if ranks is not None:
+        ranks.begin_run()
     ctx = SimpleNamespace(config=config, traffic=traffic, limits=limits,
-                          seed=int(seed), device=device,
-                          root=os.path.dirname(bench_dir), control=control)
+                          seed=int(seed), device=device, bench_dir=bench_dir,
+                          root=os.path.dirname(bench_dir), control=control,
+                          rank=rank, world=world)
     entry = entry_module(bench_dir, traffic)
-    w = Window(t_process, seconds, device, trace)
+    w = Window(t_process, seconds, device, trace, ranks)
     cellobj = entry.Cell(ctx)
     cellobj.run(w)
+    # Each rank traces its own card; the metrics read rank 0's trace, the
+    # busy time is averaged over the cards.
+    traced = trace_mod.read(w.prof, w.window_s) if w.prof is not None \
+        else None
+    record = {"peaks": [w.peak_setup, w.peak_window],
+              "busy_s": None if traced is None else traced.busy_s}
+    if ranks is None:
+        records = [record]
+    else:
+        print(f"rank {rank}: the window's stop agreed in "
+              f"{1e3 * ranks.wait_s / max(len(w.units), 1):.4f} ms a unit "
+              f"({len(w.units)} units)", file=err, flush=True)
+        records = ranks.gather(record)
+        if rank != 0:
+            cellobj.free()
+            # Every rank looks once its window has closed: a rank that
+            # loaded JAX exits non-zero, and the launcher then drops rank
+            # 0's result line.
+            refuse_forbidden(err)
+            ranks.done()
+            return None
     print("setup phases (s since process start): " + ", ".join(
         f"{n} {t:.3f}" for n, t in w.phases + [("window", w.setup_s)]),
         file=err, flush=True)
@@ -218,16 +349,15 @@ def run_cell(workload, seed, seconds, trace, device="cuda", bench_dir=HERE,
         config=config, traffic=traffic, setup_s=w.setup_s,
         window_s=w.window_s, units=w.units,
         step_ms=w.step_ms() if w.marks else [], counters=w.counters,
-        peak_bytes=w.peak_window, trace=None)
+        peak_bytes=max(r["peaks"][1] for r in records), trace=traced,
+        world=world, bench_dir=bench_dir)
     if run.step_ms:
         slow = sorted(range(len(run.step_ms)), key=lambda i: -run.step_ms[i])
         print("steps %d, median %.3f ms, slowest (index: ms) %s" % (
             len(run.step_ms), sorted(run.step_ms)[len(run.step_ms) // 2],
             ", ".join(f"{i}: {run.step_ms[i]:.3f}" for i in slow[:8])),
             file=err, flush=True)
-    if w.prof is not None:
-        run.trace = trace_mod.read(w.prof, w.window_s)
-    peak = max(w.peak_setup, w.peak_window)
+    peak = max(max(r["peaks"]) for r in records)
     cellobj.free()
     metrics = {}
     for m in cell_metrics(bench, workload, trace):
@@ -237,11 +367,7 @@ def run_cell(workload, seed, seconds, trace, device="cuda", bench_dir=HERE,
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     checks = cellobj.check()
-    found = forbidden_modules()
-    if found:
-        print(f"modules of JAX or of the JAX package were loaded: {found}",
-              file=err, flush=True)
-        raise SystemExit(3)
+    refuse_forbidden(err)
     over = sum(1 for _, v, lim in checks if not v <= lim)
     for name, v, lim in checks:
         print(f"check {name} = {v!r} (limit {lim!r})", file=err, flush=True)
@@ -250,21 +376,31 @@ def run_cell(workload, seed, seconds, trace, device="cuda", bench_dir=HERE,
         "attempted": len(w.units),
         "failed": int(getattr(cellobj, "failed_units", 0)),
         "metrics": metrics,
-        "device": device_record(device, peak),
+        "device": device_record(device, peak, world),
     }
     if run.trace is not None:
-        result["device"]["busy_s"] = run.trace.busy_s
+        result["device"]["busy_s"] = sum(r["busy_s"] for r in records) \
+            / len(records)
         result["device"]["window_s"] = run.trace.window_s
         result["breakdown"] = run.trace.breakdown
     result["checks"] = {name: {"value": float(v), "limit": float(lim)}
                         for name, v, lim in checks}
     print(json.dumps(result), file=out, flush=True)
+    if ranks is not None:
+        ranks.done()
     return result
 
 
-def device_record(device, peak):
+def device_record(device, peak, count=1):
+    """``peak``: the fullest card's."""
     if torch.device(device).type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+        return {"platform": "cpu", "kind": "cpu", "count": count,
                 "memory_peak_bytes": 0}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": int(peak)}
+            "count": count, "memory_peak_bytes": int(peak)}
+
+
+def end_ranks():
+    """Leave the program's process group, where a cell joined one."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

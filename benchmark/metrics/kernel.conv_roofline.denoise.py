@@ -8,12 +8,12 @@ from benchmark import readers, yardstick
 
 def read(run):
     launches = run.counters.get("nb_conv3d.launches")
-    if run.trace is None or not launches:
+    per = readers.forwards_per_launch(run)
+    if run.trace is None or not launches or not per:
         return None
-    model, width = readers.model_width(run)
     d = run.traffic["denoise"]
-    batches = launches / readers.forwards_per_launch(run)
-    bound = batches * yardstick.forward_conv_bound_s(
-        model, d["batch_size"], d["patch_size"], width)
+    bound = launches / per * yardstick.forward_conv_bound_s(
+        run.config["model_config"], d["batch_size"], d["patch_size"],
+        counts_dir=readers.counts_dir(run))
     dev = readers.conv_seconds(run, readers.conv_kernels(run))
     return readers.share(bound, dev)

@@ -7,13 +7,13 @@ from benchmark import readers, yardstick
 
 
 def read(run):
-    if not run.units:
+    if not run.units or readers.counted_model(run) is None:
         return None
-    model, width = readers.model_width(run)
     d = run.traffic["denoise"]
     shape = run.traffic["inputs"]["shape"]
     patches = yardstick.streamed_patches(shape, d["slab_z"], d["patch_size"],
                                          d["overlap"], d["batch_size"])
-    flops = len(run.units) * yardstick.forward_flops(model, patches,
-                                                     d["patch_size"], width)
+    flops = len(run.units) * yardstick.forward_flops(
+        run.config["model_config"], patches, d["patch_size"],
+        counts_dir=readers.counts_dir(run))
     return 100.0 * flops / run.window_s / yardstick.PEAK_BF16_FLOPS

@@ -8,9 +8,9 @@ from benchmark import readers
 
 def read(run):
     launches = run.counters.get("nb_conv3d.launches")
-    if not launches:
+    per = readers.forwards_per_launch(run)
+    if not launches or not per:
         return None
     d = run.traffic["denoise"]
-    batches = launches / readers.forwards_per_launch(run)
-    forwarded = batches * d["batch_size"] * d["patch_size"] ** 3
+    forwarded = launches / per * d["batch_size"] * d["patch_size"] ** 3
     return forwarded / sum(size for size, _ in run.units)

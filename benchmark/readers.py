@@ -5,6 +5,8 @@ arithmetic that turns a trace and counters into shares."""
 
 from __future__ import annotations
 
+import os
+
 from benchmark import trace as trace_mod
 from benchmark import yardstick
 
@@ -45,15 +47,28 @@ def other_seconds(run, frags):
         run.trace, lambda n: not is_copy(n) and not has(n, frags))
 
 
-def model_width(run):
+def counts_dir(run):
+    """The counts files of the benchmark the run was read from."""
+    return os.path.join(run.bench_dir, "counts")
+
+
+def counted_model(run):
+    """The cell's model configuration, or None where the benchmark has no
+    counts file for its model (its readers then report nothing)."""
     mc = run.config["model_config"]
-    return mc["model"], float(mc["width_multiplier"])
+    if yardstick.counts_module(mc["model"], counts_dir(run)) is None:
+        return None
+    return mc
 
 
 def forwards_per_launch(run):
-    """3³ forward convs a model forward launches."""
-    model, width = model_width(run)
-    return sum(1 for s in yardstick.conv_shapes(model, 8, width)
+    """3³ forward convs a model forward launches, or None for a model
+    without counts."""
+    mc = counted_model(run)
+    if mc is None:
+        return None
+    return sum(1 for s in yardstick.conv_shapes(mc, 8,
+                                                counts_dir=counts_dir(run))
                if s[0] == "fwd")
 
 
@@ -63,3 +78,22 @@ def share(bound_s, device_s):
         return None
     return 100.0 * bound_s / device_s
 
+
+
+def is_comm(name):
+    """The collectives' kernels (NCCL's ``ncclDevKernel_AllReduce_...``)."""
+    return "nccl" in name.lower()
+
+
+def comm_intervals(run):
+    """The traced rank's collective kernels and its compute kernels (the
+    rest, copies and memsets left out), each as ``[(start_us, end_us)]``,
+    or None where no collective ran on its device."""
+    if run.trace is None:
+        return None
+    comm = [(a, b) for a, b, n in run.trace.device if is_comm(n)]
+    if not comm:
+        return None
+    compute = [(a, b) for a, b, n in run.trace.device
+               if not is_comm(n) and not is_copy(n)]
+    return comm, compute

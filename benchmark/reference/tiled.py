@@ -36,10 +36,11 @@ def trim_mask(start, patch, trim, shape, device):
 
 
 @torch.no_grad()
-def denoise(params, model_cfg, transform_cfg, noisy, patch, overlap, trim,
-            batch, device, quant=None):
+def denoise(model, params, model_cfg, transform_cfg, noisy, patch, overlap,
+            trim, batch, device, quant=None):
     """Float counts ``(Z, Y, X)`` (clamped to 0..65535, not rounded) of
-    the reference denoising of the uint16 volume ``noisy``."""
+    the reference denoising of the uint16 volume ``noisy`` by ``model``,
+    the configuration's reference module (``references.reference_model``)."""
     T = unet.transform(transform_cfg)
     vol = torch.from_numpy(noisy.astype(np.float32)).to(device)
     x = T.forward(vol)
@@ -52,12 +53,11 @@ def denoise(params, model_cfg, transform_cfg, noisy, patch, overlap, trim,
     acc = torch.zeros(padded, device=device)
     wgt = torch.zeros(padded, device=device)
     coords = [(z, y, w) for z in grid[0] for y in grid[1] for w in grid[2]]
-    residual = model_cfg.get("residual", True)
     for i in range(0, len(coords), batch):
         chunk = coords[i:i + batch]
         xb = torch.stack([x[z:z + patch, y:y + patch, w:w + patch]
                           for z, y, w in chunk])[:, None]
-        pred = unet.forward(params, xb, residual, quant)[:, 0]
+        pred = model.forward(params, xb, model_cfg, quant)[:, 0]
         for (z, y, w), pr in zip(chunk, pred):
             m = trim_mask((z, y, w), patch, trim, shape, device)
             acc[z:z + patch, y:y + patch, w:w + patch] += pr * m

@@ -15,8 +15,6 @@ import math
 import numpy as np
 import torch
 
-from benchmark.reference import unet
-
 
 def charbonnier(d, eps):
     return torch.sqrt(d * d + eps * eps)
@@ -27,22 +25,31 @@ def cosine_lr(lr, t, total):
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / total))
 
 
-def to_params(tree, device):
-    return {k: torch.tensor(np.asarray(v, np.float32), device=device,
-                            requires_grad=True)
-            for k, v in unet.flatten(tree).items()}
+def f32(v, device):
+    """A leaf (array or tensor) as a float32 tensor of its own on
+    ``device``."""
+    if not torch.is_tensor(v):
+        v = torch.from_numpy(np.asarray(v, np.float32))
+    return v.to(device, torch.float32, copy=True)
 
 
-def supervised_grads(params, model_cfg, x, y, eps, chunk, quant=None):
-    """Mean Charbonnier loss of ``model(x)`` against ``y`` (both ``(B, 1,
-    D, H, W)``) and its gradients."""
+def to_params(flat, device):
+    """Float32 leaves of the flat ``{name: leaf}`` that need their
+    gradients."""
+    return {k: f32(v, device).requires_grad_(True) for k, v in flat.items()}
+
+
+def supervised_grads(model, params, model_cfg, x, y, eps, chunk,
+                     quant=None):
+    """Mean Charbonnier loss of ``model.forward`` (the configuration's
+    reference module) on ``x`` against ``y`` (both ``(B, 1, D, H, W)``)
+    and its gradients."""
     for p in params.values():
         p.grad = None
     b = x.shape[0]
     total = 0.0
     for i in range(0, b, chunk):
-        pred = unet.forward(params, x[i:i + chunk],
-                            model_cfg["residual"], quant)
+        pred = model.forward(params, x[i:i + chunk], model_cfg, quant)
         loss = charbonnier(pred - y[i:i + chunk], eps).mean() \
             * (pred.shape[0] / b)
         loss.backward()

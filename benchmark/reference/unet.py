@@ -11,7 +11,8 @@ logits alone with ``residual=False``).
 
 Parameters are a flat dict of the Flax names (``DoubleConv_0/Conv_0/
 kernel``) to tensors; Flax's DHWIO taps are used as ``(Cout, Cin, 3, 3,
-3)``. ``quant``, when given (:class:`Fp8`), rounds every 3³ conv's
+3)``, and taps given as ``(27, Cin, Cout)`` (weights made from the seed in
+the port's layout) hold the same numbers in the same order. ``quant``, when given (:class:`Fp8`), rounds every 3³ conv's
 input, taps and output gradient (the control's lower precision);
 :class:`Bf16` runs the whole network in bfloat16 instead (a witness of
 what the configuration's precision alone reads, not a control).
@@ -23,6 +24,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+# The models this reference computes (``references.py`` finds it by them).
+MODELS = ("UNet",)
 
 
 def flatten(tree, prefix=""):
@@ -36,7 +40,10 @@ def flatten(tree, prefix=""):
 
 
 def _conv(p, name, x, quant):
-    w = p[f"{name}/kernel"].permute(4, 3, 0, 1, 2)
+    w = p[f"{name}/kernel"]
+    if w.dim() == 3:
+        w = w.reshape(3, 3, 3, *w.shape[1:])
+    w = w.permute(4, 3, 0, 1, 2)
     if quant is None or quant is Bf16:
         return F.conv3d(x, w, padding=1)
     return quant.output(F.conv3d(quant.input(x), quant.input(w), padding=1))
@@ -68,8 +75,10 @@ def _up(x):
                          align_corners=False)
 
 
-def forward(p, x, residual=True, quant=None):
-    """``x``: ``(B, 1, D, H, W)`` float32 in the transform domain."""
+def forward(p, x, model_cfg, quant=None):
+    """``x``: ``(B, 1, D, H, W)`` float32 in the transform domain;
+    ``model_cfg["residual"]`` (default True) adds the input back."""
+    residual = model_cfg.get("residual", True)
     def pool(t):
         return F.max_pool3d(t, 2)
 

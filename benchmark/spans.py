@@ -21,7 +21,7 @@ def _intervals(run, names):
     return [(a, b) for a, b, name in run.trace.host if name in names]
 
 
-def _overlap(xs, ys):
+def overlap(xs, ys):
     """Measure of the intersection of two merged, sorted interval lists."""
     total, i, j = 0.0, 0, 0
     while i < len(xs) and j < len(ys):
@@ -56,7 +56,7 @@ def idle_seconds_in(run, names):
         return None
     merged = trace_mod.union(spans)
     busy = trace_mod.union(run.trace.device)
-    return (sum(b - a for a, b in merged) - _overlap(merged, busy)) / 1e6
+    return (sum(b - a for a, b in merged) - overlap(merged, busy)) / 1e6
 
 
 def per_unit_ms(run, seconds):

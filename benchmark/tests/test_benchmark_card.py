@@ -1,7 +1,9 @@
 """The control of every cell on the card, at a size a test run holds: the
 plain reference in the precision below the configuration's, put in the
 program's place, must come out not correct on three seeds, while the
-program's own runs at that size come out correct.
+program's own runs at that size come out correct. A cell on several cards
+runs one process a card (``launch.py``) and skips where the host has
+fewer cards.
 
     python3 -m pytest -q -m gpu benchmark/tests/test_benchmark_card.py
 """
@@ -11,42 +13,24 @@ from __future__ import annotations
 import io
 import json
 import os
+import sys
 import time
 
 import pytest
 import torch
 
-from benchmark import harness
+from benchmark import harness, launch
 from benchmark.tests.test_benchmark_runs import ROOT, tiny_copy
 
-SMALL = {
-    "denoise": lambda t: (
-        t["inputs"].update(shape=[256, 256, 256], block=[128] * 3, count=2),
-        t["denoise"].update(slab_z=128), t.update(warmup_units=1)),
-    "trainer": lambda t: (
-        t["inputs"].update(count=128, volumes=2, block=[128] * 3),
-        t.update(batch_size=8, warmup_units=4)),
-    "teacher": lambda t: (
-        t["inputs"].update(count=64, volumes=1, block=[128] * 3),
-        t.update(warmup_units=1)),
-}
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 @pytest.fixture(scope="module")
 def card_copy(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the control is read on the card")
-    bench_dir = tiny_copy(str(tmp_path_factory.mktemp("card")))
-    # tiny_copy shrank the traffic for the CPU; on the card take the
-    # cell's own files again at SMALL's sizes.
-    tdir = os.path.join(bench_dir, "traffic")
-    for f in os.listdir(tdir):
-        with open(os.path.join(ROOT, "benchmark", "traffic", f)) as fh:
-            t = json.load(fh)
-        SMALL[t["entry"]](t)
-        with open(os.path.join(tdir, f), "w") as fh:
-            json.dump(t, fh)
-    return bench_dir
+    # Each traffic file at its own ``small`` block's sizes.
+    return tiny_copy(str(tmp_path_factory.mktemp("card")), block="small")
 
 
 def _cells():
@@ -57,16 +41,31 @@ def _cells():
 @pytest.mark.gpu
 @pytest.mark.parametrize("workload", _cells())
 def test_control_fails_and_program_passes_on_the_card(card_copy, workload):
-    def run(seed, control):
-        return harness.run_cell(workload, seed, 2.0, False, device="cuda",
-                                bench_dir=card_copy,
-                                t_process=time.perf_counter(),
-                                control=control, out=io.StringIO(),
-                                err=io.StringIO())
-
     bench = harness.load_json(os.path.join(card_copy, "..", "BENCHMARK.json"))
-    _, _, traffic, _ = harness.cell_files(card_copy, bench, workload)
+    cell, _, traffic, _ = harness.cell_files(card_copy, bench, workload)
     control = harness.entry_module(card_copy, traffic).CONTROL
+    chips = cell["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA devices")
+
+    def run(seed, control):
+        if chips == 1:
+            return harness.run_cell(workload, seed, 2.0, False,
+                                    device="cuda", bench_dir=card_copy,
+                                    t_process=time.perf_counter(),
+                                    control=control, out=io.StringIO(),
+                                    err=io.StringIO())
+        out = io.StringIO()
+        code = launch.launch(
+            [sys.executable, os.path.join(HERE, "rank_child.py"),
+             "--bench-dir", card_copy, "--workload", workload, "--device",
+             "cuda", "--seconds", "2", "--seeds", str(seed)]
+            + (["--control", control] if control else []), chips, out=out)
+        assert code == 0
+        (line,) = [x for x in out.getvalue().splitlines()
+                   if x.startswith("{")]
+        return json.loads(line)
+
     assert run(2 ** 31 + 3, None)["correct"]
     for seed in (101, 202, 2 ** 31 + 303):
         assert not run(seed, control)["correct"], seed

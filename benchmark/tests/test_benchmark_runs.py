@@ -22,42 +22,40 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 
-TINY = {
-    "denoise": lambda t: (
-        t["inputs"].update(shape=[64, 64, 64], block=[32, 32, 32], count=2,
-                           tubes=3),
-        t["denoise"].update(slab_z=32, patch_size=32, batch_size=2),
-        t.update(warmup_units=1), t["check"].update(reference_batch=2)),
-    "trainer": lambda t: (
-        t["inputs"].update(patch=16, count=32, volumes=2, block=[32] * 3,
-                           tubes=3),
-        t.update(batch_size=4, warmup_units=4)),
-    "teacher": lambda t: (
-        t["inputs"].update(patch=16, count=16, volumes=1, block=[32] * 3,
-                           tubes=3),
-        t.update(warmup_units=1)),
-}
+def merged(base, over):
+    """``base`` with ``over``'s keys put in, nested dicts key by key."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = merged(base[k], v) if isinstance(v, dict) \
+            and isinstance(base.get(k), dict) else v
+    return out
 
 
-def tiny_copy(dst):
+def tiny_copy(dst, block="tiny", bench=BENCH, root=ROOT):
     """The benchmark and BENCHMARK.json copied under ``dst`` with every
-    traffic file shrunk; the checkpoint linked. Returns the copy's
+    traffic file shrunk by its own ``block`` of overrides (``tiny`` for
+    the CPU, ``small`` for the card tests), and every file a
+    configuration names under ``weights`` linked. Returns the copy's
     benchmark directory."""
     bench_dir = os.path.join(dst, "benchmark")
-    shutil.copytree(BENCH, bench_dir,
+    shutil.copytree(bench, bench_dir,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
-    os.makedirs(os.path.join(dst, "checkpoints"))
-    os.symlink(os.path.join(ROOT, "checkpoints", "bm4dnet.msgpack"),
-               os.path.join(dst, "checkpoints", "bm4dnet.msgpack"))
+    shutil.copy(os.path.join(root, "BENCHMARK.json"), dst)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    for c in configs:
+        with open(os.path.join(root, c["file"])) as f:
+            w = json.load(f)["weights"]
+        if isinstance(w, str) and not os.path.exists(os.path.join(dst, w)):
+            os.makedirs(os.path.dirname(os.path.join(dst, w)), exist_ok=True)
+            os.symlink(os.path.join(root, w), os.path.join(dst, w))
     tdir = os.path.join(bench_dir, "traffic")
     for f in os.listdir(tdir):
         path = os.path.join(tdir, f)
         with open(path) as fh:
             t = json.load(fh)
-        TINY[t["entry"]](t)
         with open(path, "w") as fh:
-            json.dump(t, fh)
+            json.dump(merged(t, t[block]), fh)
     return bench_dir
 
 
@@ -183,14 +181,14 @@ def _altered_answer(monkeypatch):
     counts at a voxel: bf16 alone reads up to 56)."""
     from exaspim_tpu_torch import pipeline
 
-    orig = pipeline.predict
+    orig = pipeline._predict  # the pipeline's call of each slab
 
     def altered(*a, **k):
         out = orig(*a, **k)
         out[8:16, 8:16, 8:16] += 1000
         return out
 
-    monkeypatch.setattr(pipeline, "predict", altered)
+    monkeypatch.setattr(pipeline, "_predict", altered)
 
 
 def _half_batch_teacher(monkeypatch):
@@ -238,3 +236,139 @@ def test_a_fault_under_the_timed_path_is_not_correct(tiny, workload, fault,
     fault(monkeypatch)
     res = run(tiny, workload)
     assert not res["correct"], res["checks"]
+
+
+# ---- a model of another architecture, added as files only
+
+TINY_ARCH_REFERENCE = '''"""The plain reference of TinyRes: x + W2 * relu(W1 * x + b1) + b2."""
+
+import torch
+import torch.nn.functional as F
+
+from benchmark.reference import unet
+
+MODELS = ("TinyRes",)
+
+
+def _conv(p, name, x, quant):
+    w = p[f"{name}/kernel"]
+    w = w.reshape(3, 3, 3, *w.shape[1:]).permute(4, 3, 0, 1, 2)
+    b = p[f"{name}/bias"]
+    if quant is unet.Bf16:
+        return F.conv3d(x, w.to(x.dtype), b.to(x.dtype), padding=1)
+    if quant is None:
+        return F.conv3d(x, w, b, padding=1)
+    return quant.output(F.conv3d(quant.input(x), quant.input(w), b,
+                                 padding=1))
+
+
+def forward(p, x, model_cfg, quant=None):
+    h = x.to(torch.bfloat16) if quant is unet.Bf16 else x
+    h = F.relu(_conv(p, "Conv_0", h, quant))
+    return x + _conv(p, "Conv_1", h, quant).float()
+'''
+
+TINY_ARCH_COUNTS = '''def conv_shapes(n, model_config):
+    c = model_config["channels"]
+    return [("fwd", n, (1,), c), ("fwd", n, (c,), 1), ("dx", n, (1,), c)]
+'''
+
+
+def tiny_res_class():
+    """A model of an architecture the benchmark has never seen, built from
+    the port's ``Conv3`` as a model of the port would be."""
+    from exaspim_tpu_torch.models.unet3d import Conv3
+
+    class TinyRes(torch.nn.Module):
+        def __init__(self, channels=8, dtype=torch.float32):
+            super().__init__()
+            self.config = {"model": "TinyRes", "channels": channels}
+            self.dtype = dtype
+            self.Conv_0 = Conv3(1, channels, dtype, bias=True)
+            self.Conv_1 = Conv3(channels, 1, dtype, bias=True)
+
+        def forward(self, x):
+            y, _, _ = self.Conv_0(x.to(self.dtype))
+            y, _, _ = self.Conv_1(torch.relu(y))
+            return x + y.to(x.dtype)
+
+    return TinyRes
+
+
+def add_tiny_arch(tmp_path, traffic):
+    """Files only: a configuration with weights from the seed, its
+    reference, its counts, a traffic mix (a copy of ``traffic`` with its
+    own ``tiny`` block) and the cell's limits, and the entries in
+    BENCHMARK.json. Returns the copy's benchmark directory and the cell."""
+    bench_dir = tiny_copy(str(tmp_path))
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "bm4dnet-w1.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="tinyres-c8", source="a test model", reduced=[],
+               weights={"init": "seed"},
+               model_config={"model": "TinyRes", "channels": 8})
+    for sub, name, text in (
+            ("configs", "tinyres-c8.json", json.dumps(cfg)),
+            ("reference", "tinyres.py", TINY_ARCH_REFERENCE),
+            ("counts", "TinyRes.py", TINY_ARCH_COUNTS)):
+        with open(os.path.join(bench_dir, sub, name), "w") as f:
+            f.write(text)
+    with open(os.path.join(ROOT, "benchmark", "traffic",
+                           f"{traffic}.json")) as f:
+        t = json.load(f)
+    with open(os.path.join(bench_dir, "traffic", "arch-mix.json"), "w") as f:
+        json.dump(merged(t, t["tiny"]), f)
+    cell = "tinyres-c8.arch-mix"
+    shutil.copy(os.path.join(bench_dir, "limits", f"bm4dnet-w1.{traffic}.json"),
+                os.path.join(bench_dir, "limits", f"{cell}.json"))
+    path = os.path.join(tmp_path, "BENCHMARK.json")
+    with open(path) as f:
+        b = json.load(f)
+    b["configs"].append({"name": "tinyres-c8", "source": "a test model",
+                         "file": "benchmark/configs/tinyres-c8.json",
+                         "reduced": [], "why": "files only"})
+    b["workloads"].append({"name": cell, "config": "tinyres-c8",
+                           "traffic": "arch-mix", "chips": 1,
+                           "why": "files only"})
+    with open(path, "w") as f:
+        json.dump(b, f)
+    return bench_dir, cell
+
+
+@pytest.mark.parametrize("traffic,fault", [
+    ("denoise-512", "_altered_answer"), ("train-stream", "_frozen_steps")])
+def test_a_model_of_another_architecture_added_as_files(
+        tmp_path, monkeypatch, traffic, fault):
+    from exaspim_tpu_torch.models import MODEL_REGISTRY
+
+    monkeypatch.setitem(MODEL_REGISTRY, "TinyRes", tiny_res_class())
+    bench_dir, cell = add_tiny_arch(tmp_path, traffic)
+    res = run(bench_dir, cell)
+    assert res["correct"], res["checks"]
+    assert "setup_s" in res["metrics"]
+    globals()[fault](monkeypatch)
+    assert not run(bench_dir, cell)["correct"]
+
+
+@pytest.mark.parametrize("name", [
+    "pipeline.forwarded_ratio", "kernel.conv_roofline.denoise",
+    "mfu.denoise", "kernel.conv_roofline.train", "mfu.train"])
+def test_a_reader_of_a_model_without_counts_reads_none(name):
+    from types import SimpleNamespace
+
+    traffic = {"entry": "denoise", "kernels": ["nb_conv3d", "nb_conv3d_dw"],
+               "batch_size": 4, "inputs": {"patch": 16, "shape": [32] * 3},
+               "denoise": {"slab_z": 32, "patch_size": 16, "overlap": 4,
+                           "batch_size": 4}}
+    trace = SimpleNamespace(device=[(0.0, 10.0, "nb_conv3d_kernel")],
+                            host=[], busy_s=1e-5, window_s=1.0)
+    r = SimpleNamespace(
+        config={"model_config": {"model": "NoCountsNet"}}, traffic=traffic,
+        units=[(32.0 ** 3, 0.5)], window_s=1.0, trace=trace, world=1,
+        counters={"nb_conv3d.launches": 36, "nb_conv3d_dw.launches": 18},
+        bench_dir=BENCH)
+    reader = harness.load_module(harness.metric_reader(BENCH, name),
+                                 f"bench_metric_{name}")
+    assert reader.read(r) is None
+    r.config = {"model_config": {"model": "UNet", "width_multiplier": 1.0}}
+    assert reader.read(r) is not None

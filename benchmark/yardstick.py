@@ -2,8 +2,9 @@
 bytes of each kernel's work, and the tiling plans they are counted on.
 
 These are copies, taken once, of the counts the port's own benches use
-(``ops/nb_bench.unet_conv_shapes``, ``chip_smoke.py``'s conv and dL/dW
-bytes, ``ops/match_bench.match_operations``, ``pipeline._tile_plan``,
+(``ops/nb_bench.unet_conv_shapes``, kept in ``counts/UNet.py``: each
+model's conv list is a file of its own; ``chip_smoke.py``'s conv and
+dL/dW bytes, ``ops/match_bench.match_operations``, ``pipeline._tile_plan``,
 ``inference.generate_patch_starts``). They live here so that a change to
 the program cannot move the yardstick: every roofline share and every MFU
 of the benchmark is computed from these functions alone, for the work the
@@ -12,46 +13,55 @@ shapes need, whatever kernel the program runs.
 
 from __future__ import annotations
 
+import importlib.util
 import math
+import os
 
 # NVIDIA H100 SXM, published dense peaks (data sheet, 700 W).
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-
-def channels(width, base=(32, 64, 128, 256, 512)):
-    return tuple(int(c * width) for c in base)
-
-
-def unet_conv_shapes(n, width=1.0, base=(32, 64, 128, 256, 512),
-                     top_skip=True):
-    """The 3³ convs of one forward and backward of the U-Net on an ``n``³
-    input: ``(kind, n_i, segments, Cout)``, kind ``fwd`` (18) or ``dx``
-    (17: every conv but the entry conv, whose input needs no gradient).
-    The encoder halves every stage and the decoder doubles it, in
-    ``UNet`` and ``N2V2UNet`` alike; ``top_skip=False`` is N2V2's last
-    ``Up``, which convolves the upsampled segment alone (trilinear: its
-    mid conv halves the channels)."""
-    c1, c2, c3, c4, c5 = channels(width, base)
-    fwd = []
-    for i, (cin, cout) in enumerate(((1, c1), (c1, c2), (c2, c3), (c3, c4),
-                                     (c4, c5 // 2))):
-        fwd += [(n >> i, (cin,), cout), (n >> i, (cout,), cout)]
-    ups = [(c4, c5 // 2, c4 // 2), (c3, c4 // 2, c3 // 2),
-           (c2, c3 // 2, c2 // 2), (c1 if top_skip else 0, c2 // 2, c1)]
-    for i, (cs, cu, cout) in enumerate(ups):
-        m = n >> (3 - i)
-        segs = (cs, cu) if cs else (cu,)
-        fwd += [(m, segs, (cs + cu) // 2), (m, ((cs + cu) // 2,), cout)]
-    out = [("fwd", *f) for f in fwd]
-    out += [("dx", m, (cout,), sum(segs)) for m, segs, cout in fwd[1:]]
-    return out
+# One file a model, ``counts/<model>.py`` with ``conv_shapes(n,
+# model_config)``: a new architecture brings its own.
+COUNTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "counts")
+_LOADED = {}
 
 
-def conv_shapes(model, n, width):
-    """The 3³ convs of ``UNet`` or ``N2V2UNet`` (no top skip)."""
-    return unet_conv_shapes(n, width, top_skip=model != "N2V2UNet")
+def model_config(model, width=None):
+    """A model configuration: ``model`` itself where it is one, or the
+    U-Net family's name and width (``("UNet", 1.0)``)."""
+    if isinstance(model, dict):
+        return model
+    return {"model": model, "width_multiplier": width}
+
+
+def counts_module(name, counts_dir=COUNTS):
+    """The counts file ``<counts_dir>/<name>.py`` of model ``name``, or
+    None where the benchmark has none."""
+    path = os.path.join(counts_dir, f"{name}.py")
+    if not os.path.exists(path):
+        return None
+    if path not in _LOADED:
+        spec = importlib.util.spec_from_file_location(
+            f"bench_counts_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _LOADED[path] = mod
+    return _LOADED[path]
+
+
+def conv_shapes(model, n, width=None, counts_dir=COUNTS):
+    """The 3³ convs of one forward and backward of ``model`` (a model
+    configuration, or a U-Net's name and ``width``) on an ``n``³ input,
+    ``(kind, n_i, segments, Cout)`` with kind ``fwd`` or ``dx``, from the
+    model's counts file. A model without one raises ``LookupError``."""
+    cfg = model_config(model, width)
+    mod = counts_module(cfg["model"], counts_dir)
+    if mod is None:
+        raise LookupError(f"no counts file for the model {cfg['model']!r} "
+                          f"in {counts_dir}")
+    return mod.conv_shapes(n, cfg)
 
 
 def conv_work(b, n, segs, cout, kind):
@@ -78,17 +88,18 @@ def bound_s(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     return max(flops / peak_flops, nbytes / PEAK_BYTES)
 
 
-def forward_conv_bound_s(model, b, n, width):
+def forward_conv_bound_s(model, b, n, width=None, counts_dir=COUNTS):
     """Σ bound of the forward's 3³ convs of one batch."""
     return sum(bound_s(*conv_work(b, m, segs, cout, "fwd"))
-               for kind, m, segs, cout in conv_shapes(model, n, width)
+               for kind, m, segs, cout in conv_shapes(model, n, width,
+                                                      counts_dir)
                if kind == "fwd")
 
 
-def step_conv_bound_s(model, b, n, width):
+def step_conv_bound_s(model, b, n, width=None, counts_dir=COUNTS):
     """Σ bound of one training step's 3³ convs: the forwards, the dL/dx
     and the dL/dW of every forward conv; ``(rows 1-2, row 3)``."""
-    shapes = conv_shapes(model, n, width)
+    shapes = conv_shapes(model, n, width, counts_dir)
     fwd_dx = sum(bound_s(*conv_work(b, m, segs, cout, kind))
                  for kind, m, segs, cout in shapes)
     dw = sum(bound_s(*conv_work(b, m, segs, cout, "dw"))
@@ -96,17 +107,18 @@ def step_conv_bound_s(model, b, n, width):
     return fwd_dx, dw
 
 
-def forward_flops(model, b, n, width):
-    """Model FLOPs of one forward: its 3³ convs (the 1×1 head, the resize
-    and the norms are below a thousandth of them)."""
+def forward_flops(model, b, n, width=None, counts_dir=COUNTS):
+    """Model FLOPs of one forward: its 3³ convs (the U-Net's 1×1 head,
+    resize and norms are below a thousandth of them)."""
     return sum(conv_work(b, m, segs, cout, "fwd")[0]
-               for kind, m, segs, cout in conv_shapes(model, n, width)
+               for kind, m, segs, cout in conv_shapes(model, n, width,
+                                                      counts_dir)
                if kind == "fwd")
 
 
-def step_flops(model, b, n, width):
+def step_flops(model, b, n, width=None, counts_dir=COUNTS):
     """Model FLOPs of one training step: forward, dL/dx and dL/dW."""
-    shapes = conv_shapes(model, n, width)
+    shapes = conv_shapes(model, n, width, counts_dir)
     return sum(conv_work(b, m, segs, cout, kind)[0]
                for kind, m, segs, cout in shapes) + sum(
         conv_work(b, m, segs, cout, "dw")[0]
