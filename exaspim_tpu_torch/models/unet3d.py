@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_stats
+from exaspim_tpu_torch.ops.nb_conv import nb_conv3d, nb_conv3d_stats
 
 __all__ = [
     "UNet",
@@ -238,7 +238,12 @@ class Conv3(nn.Module):
             self._cast = (key, k.to(self.dtype))
         return self._cast[1]
 
-    def forward(self, xs):
+    def forward(self, xs, stats=True):
+        """``(y, Σy, Σy²)``; ``stats=False``: ``y`` alone, from a launch
+        without the statistics epilogue."""
+        if not stats:
+            y = nb_conv3d(xs, self.taps())
+            return y if self.bias is None else y + self.bias.to(y.dtype)
         y, s1, s2 = nb_conv3d_stats(xs, self.taps())
         if self.bias is None:
             return y, s1, s2

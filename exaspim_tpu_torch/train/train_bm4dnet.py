@@ -2,10 +2,11 @@
 
 Counterpart of ``scripts/train_bm4dnet.py``, with the same defaults: the
 transform comes from the cache contract (every cache dir must agree), a
-width-1.0 UNet in bf16 with f32 params, batch 32, AdamW lr 1e-3 with a
-cosine schedule, ``fg_weight`` 0, the card-resident cache when it fits,
-and checkpoint weights with cratio 10. The run config is recorded next to
-the checkpoints.
+width-1.0 UNet (or the model of ``--model-config``, built by
+:func:`~exaspim_tpu_torch.models.build_model`) in bf16 with f32 params,
+batch 32, AdamW lr 1e-3 with a cosine schedule, ``fg_weight`` 0, the
+card-resident cache when it fits, and checkpoint weights with cratio 10.
+The run config is recorded next to the checkpoints.
 
 Usage (on the card):
     python -m exaspim_tpu_torch.train.train_bm4dnet --train-cache /c/train \\
@@ -36,6 +37,7 @@ only rank 0 writes checkpoints and logs. A plain run with
 from __future__ import annotations
 
 import argparse
+import json
 
 import torch
 
@@ -44,7 +46,7 @@ from exaspim_tpu_torch.data.cache import (
     CachedValidateDataset,
     load_cache_transform,
 )
-from exaspim_tpu_torch.models import UNet, build_model
+from exaspim_tpu_torch.models import build_model
 from exaspim_tpu_torch.train.trainer import Trainer
 from exaspim_tpu_torch.transforms import build_transform
 
@@ -85,10 +87,9 @@ def train(train_cache, val_cache, output_dir, *, epochs=50, batch_size=32,
         resume = load_checkpoint(resume)
         if model_cfg is None:
             model_cfg = resume["model_config"]
-    if model_cfg:
-        model = build_model(model_cfg, dtype=dtype, device=device)
-    else:
-        model = UNet(width_multiplier=width_multiplier, dtype=dtype)
+    model = build_model(
+        model_cfg or {"model": "UNet", "width_multiplier": width_multiplier},
+        dtype=dtype, device=device)
     trainer = Trainer(
         output_dir, model, transform, lr=lr, epochs=epochs,
         batch_size=batch_size, fg_weight=fg_weight, loss_eps=loss_eps,
@@ -127,7 +128,12 @@ def main(argv=None):
     p.add_argument("--preserve-foreground", action="store_true")
     p.add_argument("--val-every", type=int, default=1000)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--width-multiplier", type=float, default=1.0)
+    p.add_argument("--width-multiplier", type=float, default=1.0,
+                   help="the UNet's width when no --model-config is given")
+    p.add_argument("--model-config", type=json.loads,
+                   help="the model to train, as a checkpoint's model_config "
+                        'in JSON (\'{"model": "RCAN3D"}\'); default the '
+                        "UNet at --width-multiplier")
     p.add_argument("--resume", help="checkpoint to warm-start from")
     p.add_argument("--no-bf16", action="store_true")
     p.add_argument("--max-val-examples", type=int)
@@ -148,6 +154,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     port = dict(exact_cratio_examples=args.exact_cratio_examples,
                 device=args.device)
+    if args.model_config:
+        port["model_cfg"] = args.model_config
     if args.config_json:
         from exaspim_tpu_torch.config import TrainConfig
 

@@ -5,6 +5,8 @@ import nothing of JAX, so they also run on a machine without it:
 ``python -m pytest --noconftest -q tests/test_torch_port_gpu.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -877,6 +879,73 @@ def test_new_families_on_the_kernels(family, kw):
         ref = cpu(x)
     rel = ((y.detach().cpu() - ref).norm() / ref.norm()).item()
     assert np.isfinite(rel) and rel <= 2e-2
+
+
+# 3D-RCAN's bf16 forward against the float32 reference: the L2 of the gap
+# over the L2 of the reference's deviation from its mean (std 0.53 at this
+# initialisation). 38 bf16 roundings of the trunk read 0.0124 on an H100;
+# the limit leaves 2.4 times that.
+RCAN_RTOL = 0.03
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-f32 convs and matmuls (a plain reference) inside."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.mark.gpu
+def test_rcan3d_on_the_kernels():
+    """3D-RCAN at its published widths on one batch of nine 96³ patches:
+    its entry (1 → 32) and exit (32 → 1, element stores) convs within two
+    bf16 ulps of their plain versions at those shapes; 38 forward launches,
+    15 attentions, each reading its conv's Σy (no pool reduced); the bf16
+    forward within :data:`RCAN_RTOL` of ``benchmark/reference/rcan3d.py``
+    in float32 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from benchmark import weights
+    from benchmark.reference import rcan3d as ref_rcan
+    from exaspim_tpu_torch.models import build_model
+    from exaspim_tpu_torch.models import rcan3d
+    from exaspim_tpu_torch.ops.nb_conv import nb_conv3d_plain
+
+    rng = np.random.default_rng(9)
+    for cin, cout in ((1, 32), (32, 1)):
+        x = torch.from_numpy(_rand(rng, (9, 96, 96, 96, cin))).to(
+            "cuda", torch.bfloat16)
+        k = torch.from_numpy(_rand(rng, (27, cin, cout), 0.1)).to(
+            "cuda", torch.bfloat16)
+        y = nb_conv3d(x, k)
+        with _no_tf32():
+            py = nb_conv3d_plain(x, k)
+        err = (y.float() - py.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * py.float().abs().max().item(), (cin, cout)
+    cfg = {"model": "RCAN3D"}
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.init_weights(4)
+    x = torch.from_numpy(rng.uniform(0.0, 0.7, (9, 96, 96, 96, 1)).astype(
+        np.float32)).cuda()
+    c0, a0 = nb_conv3d.launches, dict(rcan3d.counters)
+    with torch.inference_mode():
+        y = model(x)
+    assert nb_conv3d.launches - c0 == 38
+    assert rcan3d.counters["attention"] - a0["attention"] == 15
+    params = weights.flat_names(
+        {k: v.detach() for k, v in model.state_dict().items()})
+    with torch.no_grad(), _no_tf32():
+        ref = ref_rcan.forward(params, x.permute(0, 4, 1, 2, 3), cfg)
+    ref = ref.permute(0, 2, 3, 4, 1)
+    rel = ((y - ref).norm() / (ref - ref.mean()).norm()).item()
+    assert np.isfinite(rel) and rel <= RCAN_RTOL, rel
 
 
 def _live_brain():
